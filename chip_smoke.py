@@ -1,22 +1,39 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's receive chain on one CUDA card and check it.
+"""Drive the PyTorch port's receive chain and engine on one CUDA card and
+check them.
 
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero before the final line):
 
 1. device: require a CUDA card; print ``nvidia-smi``'s name and power limit;
-2. build: compile the Viterbi kernels (csrc/viterbi.cu) with nvcc;
+2. build: compile every kernel source (csrc/*.cu, one nvcc each, in
+   parallel) into one library;
 3. kernels: the ACS (K1) and traceback (K2) kernels against their plain
    PyTorch twins on the card at the chain's shape (T = 4480, B = 4096),
-   exact equality, with CUDA-event times of both;
+   exact equality, with CUDA-event times of both; then the packed ACS
+   (K4) and traceback (K5) against their twins and against K1/K2 (planes
+   == the packing of K1's, metrics and bits equal), and the derotation
+   (K3) against its twin at the bench's payload window (4096, 1984) and
+   an MCS0 4095 B window (128, 100000), beside the factored-phasor form
+   the chain runs;
 4. chain: ``rx_chain_count`` on the 4096-packet VHT MCS7 500 B stream at
    32 dB (fast path; every packet detected, >= 99% pass FCS, sampled
    PSDUs equal the transmitted bytes) and at 18 dB (the Viterbi tiers
    run; the kernels' launch counters rise), with ms/batch and packets/s;
 5. reference: a small 20 dB stream through the chain on the card and on
    the CPU (where the kernels' twins run) gives the same per-packet
-   results.
+   results;
+6. engine: (a) the 32 dB bench stream through ``RxEngine.process``
+   (4096/4096 detected, >= 99% ok, every ok packet's MPDU equals the
+   sent one); (b) daemon-shaped traffic, 16 blocks of 1<<19 samples +
+   16384 halo of mixed L/HT/VHT packets, A-MPDUs and NDPs at 30 dB, with
+   homogeneous stretches that arm the speculative path, through
+   begin_process/finish_process (every sent packet decoded once with its
+   format, MCS and MPDUs), timed with and without speculation; (c) a
+   2-antenna stream of HT MCS8-15 and VHT 2-SS packets; (d) a small mixed
+   stream through the engine on the card and on the CPU, per-packet
+   equal.  K1/K2 must launch in the engine runs.
 
 The line before the last is a JSON object describing each kernel; the
 last is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -24,6 +41,7 @@ last is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 import json
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -83,18 +101,24 @@ def bench_streams():
     return cfg, mpdu, am, wave, streams
 
 
+T_KERNEL = 4480                         # the chain's padded trellis
+
+
+def llr_planes(torch, rng, dev):
+    """(T_KERNEL, B) float32 LLR planes on ``dev``: random, with punctured
+    zeros (metric ties) and a zero-LLR tail past the chain's T = 4420."""
+    l0 = rng.normal(size=(T_KERNEL, B)).astype(np.float32) * 4.0
+    l1 = rng.normal(size=(T_KERNEL, B)).astype(np.float32) * 4.0
+    l1[1::3] = 0.0
+    l0[4420:] = 0.0
+    l1[4420:] = 0.0
+    return torch.from_numpy(l0).to(dev), torch.from_numpy(l1).to(dev)
+
+
 def phase_kernels(torch, VK):
     """K1/K2 vs their twins at the chain's shape; returns kernel records."""
-    rng = np.random.default_rng(7)
-    T = 4480
-    l0 = rng.normal(size=(T, B)).astype(np.float32) * 4.0
-    l1 = rng.normal(size=(T, B)).astype(np.float32) * 4.0
-    l1[1::3] = 0.0                      # punctured positions: metric ties
-    l0[4420:] = 0.0                     # zero-LLR tail padding
-    l1[4420:] = 0.0
     dev = torch.device("cuda", 0)
-    l0 = torch.from_numpy(l0).to(dev)
-    l1 = torch.from_numpy(l1).to(dev)
+    l0, l1 = llr_planes(torch, np.random.default_rng(7), dev)
     pinned = VK.state0_metrics(B, dev)
     uniform = torch.zeros((64, B), dtype=torch.float32, device=dev)
     err_acs = err_tb = 0.0
@@ -115,7 +139,7 @@ def phase_kernels(torch, VK):
             check(torch.equal(bits, bref),
                   f"K2 bits differ from the twin ({name} pm0, {sname})")
             err_tb = max(err_tb, float((bits.int() - bref.int()).abs().max()))
-        log(f"kernels: K1/K2 == twins at T={T} B={B} ({name} pm0)")
+        log(f"kernels: K1/K2 == twins at T={T_KERNEL} B={B} ({name} pm0)")
     dl, dh, pm = VK.acs_sweep(l0, l1)
     start0 = VK.state0_start(B, dev)
     ms_acs = cuda_ms(lambda: VK.acs_sweep(l0, l1), 10)
@@ -136,7 +160,7 @@ def phase_kernels(torch, VK):
     ]
 
 
-def phase_chain(torch, VK, PRX, from_numpy_cf, bench):
+def phase_chain(torch, VK, CL, PRX, from_numpy_cf, bench):
     """The port's chain on the bench streams; returns launch counts."""
     cfg, mpdu, am, _, streams = bench
     dev = torch.device("cuda", 0)
@@ -150,13 +174,12 @@ def phase_chain(torch, VK, PRX, from_numpy_cf, bench):
                                   max_pkts=B, record=record)
 
     # the main path: both operating points, counters from zero
-    VK.reset_launch_counts()
+    CL.reset_launch_counts()
     records = {SNR_HI: [], SNR_LO: []}
     results = {snr: tuple(int(x) for x in run(snr, records[snr]))
                for snr in (SNR_HI, SNR_LO)}
     torch.cuda.synchronize()
-    launches = {"acs_sweep": VK.acs_sweep.launches,
-                "traceback_sweep": VK.traceback_sweep.launches}
+    launches = CL.launch_counts()
     for snr in (SNR_HI, SNR_LO):
         log(f"chain {snr:g} dB: (n_ok, n_det) = {results[snr]}, "
             f"path {records[snr]}")
@@ -167,14 +190,14 @@ def phase_chain(torch, VK, PRX, from_numpy_cf, bench):
     check(n_ok >= 0.99 * B, f"32 dB: only {n_ok} of {B} passed FCS")
     check(any(t == "full" or t.startswith("win") for t in records[SNR_LO]),
           f"18 dB did not run the full or windowed Viterbi: {records[SNR_LO]}")
-    check(all(v > 0 for v in launches.values()),
+    check(launches["acs_sweep"] > 0 and launches["traceback_sweep"] > 0,
           f"a kernel of the path was never launched: {launches}")
 
     # sampled PSDUs equal the transmitted A-MPDU bytes
     _, ltf_c, cfo, valid = PRX._detect_sync(cfg, devs[SNR_HI], B)
     rows = torch.arange(0, B, B // 16, device=dev)
     check(bool(valid[rows].all()), "sampled rows not all detected")
-    out = PRX._payload_core(cfg, devs[SNR_HI][0], ltf_c[rows], cfo[rows],
+    out = PRX._payload_core(cfg, devs[SNR_HI], ltf_c[rows], cfo[rows],
                             mpdu_len=len(mpdu))
     psdu = out["psdu"][:, : len(am)].cpu().numpy()
     want = np.frombuffer(am, np.uint8)[None]
@@ -187,7 +210,7 @@ def phase_chain(torch, VK, PRX, from_numpy_cf, bench):
         ms = cuda_ms(lambda: run(snr), N_REP)
         log(f"chain {snr:g} dB: {ms:.2f} ms/batch, {B / ms * 1e3:,.0f} pkt/s "
             f"(CUDA events, mean of {N_REP} batches of {B})")
-    return launches
+    return launches, n_ok
 
 
 def phase_reference(torch, PRX, from_numpy_cf, bench):
@@ -215,6 +238,335 @@ def phase_reference(torch, PRX, from_numpy_cf, bench):
         f"ok {int(ok_g.sum())}/12, path {rec_g}")
 
 
+def phase_kernels_extra(torch, VK, FE):
+    """K4/K5 vs their twins and K1/K2, K3 vs its twin; returns records."""
+    rng = np.random.default_rng(9)
+    dev = torch.device("cuda", 0)
+    l0, l1 = llr_planes(torch, rng, dev)
+    pinned = VK.state0_metrics(B, dev)
+    uniform = torch.zeros((64, B), dtype=torch.float32, device=dev)
+    err_acs = err_tb = 0.0
+    for name, pm0 in (("pinned", pinned), ("uniform", uniform)):
+        dl, dh, pm = VK.acs_sweep(l0, l1, pm0)
+        pl, ph, ppm = VK.acs_sweep_packed(l0, l1, pm0)
+        torch.cuda.synchronize()
+        check(torch.equal(pl, VK.pack_planes(dl))
+              and torch.equal(ph, VK.pack_planes(dh)),
+              f"K4 planes differ from K1's packed ({name} pm0)")
+        check(torch.equal(ppm, pm), f"K4 metrics differ from K1's ({name})")
+        ref = VK.acs_sweep_packed_ref(l0, l1, pm0)
+        check(all(torch.equal(a, b) for a, b in zip((pl, ph, ppm), ref)),
+              f"K4 differs from its twin ({name} pm0)")
+        err_acs = max(err_acs, float((ppm - ref[2]).abs().max()))
+        for sname, start in (("state 0", VK.state0_start(B, dev)),
+                             ("argmax", VK.argmax_start(pm))):
+            bits = VK.traceback_sweep_packed(pl, ph, start)
+            torch.cuda.synchronize()
+            check(torch.equal(bits, VK.traceback_sweep(dl, dh, start)),
+                  f"K5 bits differ from K2's ({name} pm0, {sname})")
+            bref = VK.traceback_packed_ref(pl, ph, start)
+            check(torch.equal(bits, bref),
+                  f"K5 bits differ from its twin ({name} pm0, {sname})")
+            err_tb = max(err_tb, float((bits.int() - bref.int()).abs().max()))
+        log(f"kernels: K4/K5 == twins == K1/K2 at T={T_KERNEL} B={B} "
+            f"({name} pm0)")
+    pl, ph, _ = VK.acs_sweep_packed(l0, l1)
+    start0 = VK.state0_start(B, dev)
+    ms_acs = cuda_ms(lambda: VK.acs_sweep_packed(l0, l1), 10)
+    plain_acs = cuda_ms(lambda: VK.acs_sweep_packed_ref(l0, l1, pinned), 1)
+    ms_tb = cuda_ms(lambda: VK.traceback_sweep_packed(pl, ph, start0), 10)
+    plain_tb = cuda_ms(lambda: VK.traceback_packed_ref(pl, ph, start0), 1)
+    log(f"kernels: acs_sweep_packed {ms_acs:.3f} ms (twin {plain_acs:.1f} "
+        f"ms), traceback_sweep_packed {ms_tb:.3f} ms (twin {plain_tb:.1f} ms)")
+
+    # K3: tolerance 1e-5 of the sample scale (the precise sincosf and
+    # torch's sin/cos may differ in the last bits; phases reach ~630 rad)
+    err_dr, times = 0.0, {}
+    for Bd, n in ((4096, 1984), (128, 100_000)):
+        x = torch.randn((Bd, n), device=dev), torch.randn((Bd, n), device=dev)
+        wins = FE.CF(*x)
+        cfo = torch.from_numpy(rng.uniform(-2e4, 2e4, Bd).astype(np.float32)
+                               ).to(dev)
+        got = FE.derotate(wins, cfo, n)
+        ref = FE.derotate_ref(wins, cfo, n)
+        torch.cuda.synchronize()
+        err = max(float((got.re - ref.re).abs().max()),
+                  float((got.im - ref.im).abs().max()))
+        scale = float(torch.maximum(x[0].abs().max(), x[1].abs().max()))
+        check(err <= 1e-5 * scale, f"K3 at ({Bd}, {n}): |err| {err:.3g} > "
+              f"1e-5 x {scale:.3g}")
+        err_dr = max(err_dr, err)
+        times[(Bd, n)] = (cuda_ms(lambda: FE.derotate(wins, cfo, n), 10),
+                          cuda_ms(lambda: FE.derotate_ref(wins, cfo, n), 10),
+                          cuda_ms(lambda: FE._derotate_factored(wins, cfo, n),
+                                  10))
+        log(f"kernels: derotate ({Bd}, {n}) max |err| {err:.3g} (scale "
+            f"{scale:.3g}); {times[(Bd, n)][0]:.3f} ms, twin "
+            f"{times[(Bd, n)][1]:.3f} ms, factored (the chain's) "
+            f"{times[(Bd, n)][2]:.3f} ms")
+    t_chain = times[(4096, 1984)]
+    return [
+        {"name": "derotate", "route": "cuda",
+         "source": "gr_ieee80211_tpu_torch/csrc/derotate.cu",
+         "replaces": "gr_ieee80211_tpu/ops/frontend.py:492",
+         "max_abs_err": err_dr, "ms": t_chain[0], "plain_ms": t_chain[1],
+         "factored_ms": t_chain[2],
+         "ms_at_128x100000": times[(128, 100_000)][0],
+         "plain_ms_at_128x100000": times[(128, 100_000)][1]},
+        {"name": "acs_sweep_packed", "route": "cuda",
+         "source": "gr_ieee80211_tpu_torch/csrc/viterbi.cu",
+         "replaces": "gr_ieee80211_tpu/ops/viterbi_pallas.py:208",
+         "max_abs_err": err_acs, "ms": ms_acs, "plain_ms": plain_acs},
+        {"name": "traceback_sweep_packed", "route": "cuda",
+         "source": "gr_ieee80211_tpu_torch/csrc/viterbi.cu",
+         "replaces": "gr_ieee80211_tpu/ops/viterbi_pallas.py:275",
+         "max_abs_err": err_tb, "ms": ms_tb, "plain_ms": plain_tb},
+    ]
+
+
+# ---------------------------------------------------------------------------
+# engine phases
+# ---------------------------------------------------------------------------
+
+ADDR = ("02:00:00:00:00:01", "02:00:00:00:00:02", "02:00:00:00:00:01")
+BLOCK, HALO, LCTX = 1 << 19, 16384, 256   # the rx_daemon defaults
+N_BLOCKS = 16
+
+
+def make_packet(rng, fmt, mcs, nss=1, n_bytes=300, n_mpdus=1):
+    """(waveform (nss, n) at unit rms, expected result fields)."""
+    from gr_ieee80211_tpu.gold import mac, tx
+    from gr_ieee80211_tpu.spec.params import Fmt, PhyConfig
+    if n_bytes == 0:
+        # a 2-stream VHT NDP (a 1-stream NDP's L-SIG length fails the
+        # receiver's plausibility bound), seen through a fixed 1x2 channel
+        cfg = PhyConfig(Fmt.VHT, 0, 2, 0, ampdu=True)
+        wave = np.array([[0.8, 0.6j]]) @ tx.tx_waveform(
+            cfg, b"", group_id=0, partial_aid=0)
+        return wave / np.sqrt(np.mean(np.abs(wave) ** 2)), dict(
+            fmt=Fmt.VHT, mcs=0, nss=2, mpdus=[], is_ndp=True)
+    sizes = [n_bytes // n_mpdus] * n_mpdus
+    mpdus = [mac.qos_data_frame(bytes(rng.integers(0, 256, n, dtype=np.uint8)),
+                                *ADDR, k) for k, n in enumerate(sizes)]
+    if fmt == Fmt.VHT:
+        psdu = mac.ampdu_aggregate_vht(mpdus)
+        cfg = PhyConfig(fmt, mcs, nss, len(psdu), ampdu=True)
+        wave = tx.tx_waveform(cfg, psdu, group_id=0, partial_aid=0)
+    elif n_mpdus > 1:
+        psdu = mac.ampdu_aggregate_ht(mpdus)
+        cfg = PhyConfig(fmt, mcs, nss, len(psdu), ampdu=True)
+        wave = tx.tx_waveform(cfg, psdu)
+    else:
+        cfg = PhyConfig(fmt, mcs, nss, len(mpdus[0]))
+        wave = tx.tx_waveform(cfg, mpdus[0])
+    return wave / np.sqrt(np.mean(np.abs(wave) ** 2)), dict(
+        fmt=fmt, mcs=mcs, nss=nss, mpdus=mpdus, is_ndp=False)
+
+
+def random_packet(rng):
+    """One packet of the mixed daemon traffic: L MCS0-7, HT MCS0-7 or VHT
+    MCS0-8, 100-1500 B, some 2-3 MPDU A-MPDUs, a few (2-stream) NDPs."""
+    from gr_ieee80211_tpu.spec.params import Fmt
+    u = rng.random()
+    if u < 0.03:
+        return make_packet(rng, Fmt.VHT, 0, n_bytes=0)
+    fmt = (Fmt.L, Fmt.HT, Fmt.VHT)[int(rng.integers(0, 3))]
+    mcs = int(rng.integers(0, 9 if fmt == Fmt.VHT else 8))
+    n_mpdus = int(rng.integers(2, 4)) if fmt != Fmt.L and u > 0.8 else 1
+    return make_packet(rng, fmt, mcs, n_bytes=int(rng.integers(100, 1501)),
+                       n_mpdus=n_mpdus)
+
+
+def daemon_stream(rng, snr_db=30.0):
+    """(stream (N_BLOCKS*BLOCK + HALO,), sent [(start, fields)]).  Blocks
+    4-7 carry only VHT MCS7 400 B and blocks 12-15 only HT MCS5 300 B
+    (homogeneous traffic arms the speculation); the rest is mixed.  Every
+    packet starts inside a block's own span and ends inside its halo."""
+    from gr_ieee80211_tpu.spec.params import Fmt
+    homog = {4: make_packet(rng, Fmt.VHT, 7, n_bytes=400),
+             12: make_packet(rng, Fmt.HT, 5, n_bytes=300)}
+    x = np.zeros(N_BLOCKS * BLOCK + HALO, np.complex64)
+    sent, pos = [], 0
+    for k in range(N_BLOCKS):
+        end_own = (k + 1) * BLOCK
+        fixed = homog.get(k - k % 4) if k % 8 >= 4 else None
+        while True:
+            wave, fields = fixed if fixed is not None else random_packet(rng)
+            start = pos + int(rng.integers(300, 3000))
+            n = wave.shape[-1]
+            if start >= end_own - 1000 or start + n > end_own + HALO - 2000:
+                pos = max(pos, end_own)
+                break
+            x[start: start + n] = wave[0]
+            sent.append((start, fields))
+            pos = start + n
+    noise = (rng.normal(size=x.shape) + 1j * rng.normal(size=x.shape)
+             ) * (10 ** (-snr_db / 20) / np.sqrt(2))
+    return (x + noise.astype(np.complex64)), sent
+
+
+def run_blocks(eng, stream):
+    """Feed the stream as rx_daemon blocks (256 samples of left context,
+    BLOCK owned samples, HALO look-ahead) through begin/finish_process
+    with the streamer's trigger-ownership rule; returns (owned results
+    with absolute start/trig, block kinds, seconds per block)."""
+    import torch
+    out, kinds, secs = [], [], []
+    lctx = np.zeros(LCTX, np.complex64)
+    for k in range(N_BLOCKS):
+        t0 = k * BLOCK
+        block = stream[t0: t0 + BLOCK + HALO]
+        view = np.concatenate([lctx, block])[None]
+        lctx = block[BLOCK - LCTX: BLOCK]
+        lo = 0 if k == 0 else LCTX
+        tic = time.perf_counter()
+        handle = eng.begin_process(view)
+        res = eng.finish_process(handle)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - tic)
+        kinds.append(handle[2][0])
+        for r in res:
+            if lo <= r.trig < LCTX + BLOCK:
+                r.start += t0 - LCTX
+                r.trig += t0 - LCTX
+                out.append(r)
+    return out, kinds, secs
+
+
+def check_sent(results, sent, what):
+    """Every sent packet decoded exactly once with its fields."""
+    starts = np.array([s for s, _ in sent])
+    hits = [0] * len(sent)
+    for r in results:
+        j = int(np.argmin(np.abs(starts - r.trig)))
+        check(abs(int(starts[j]) - r.trig) < 400,
+              f"{what}: result at trig {r.trig} matches no sent packet")
+        hits[j] += 1
+        f = sent[j][1]
+        check(r.ok and (r.fmt, r.mcs, r.nss, r.is_ndp) == (
+            f["fmt"], f["mcs"], f["nss"], f["is_ndp"]) and (
+                r.is_ndp or r.mpdus == f["mpdus"]),
+              f"{what}: packet at {starts[j]} decoded as ok={r.ok} "
+              f"{r.fmt} mcs{r.mcs} nss{r.nss} ndp={r.is_ndp}, sent {f}")
+    missed = [int(starts[j]) for j, h in enumerate(hits) if h != 1]
+    check(not missed, f"{what}: {len(missed)} packets not decoded exactly "
+          f"once, first at {missed[:5]}")
+
+
+def phase_engine(torch, CL, PRX, bench, chain_ok):
+    """The general engine at full size; returns per-kernel launch counts
+    summed over its runs (counts zeroed before each, read after)."""
+    from gr_ieee80211_tpu.spec.params import Fmt
+    launches = {}
+
+    def counted(fn):
+        CL.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        for k, v in CL.launch_counts().items():
+            launches[k] = launches.get(k, 0) + v
+        return out
+
+    # (a) the bench's 32 dB stream
+    cfg, mpdu, _, _, streams = bench
+    tic = time.perf_counter()
+    res = counted(lambda: PRX.RxEngine(nrx=1).process(streams[SNR_HI]))
+    secs = time.perf_counter() - tic
+    n_ok = sum(r.ok for r in res)
+    check(len(res) == B and all(r.fmt == Fmt.VHT and r.mcs == MCS
+                                for r in res),
+          f"engine (a): {len(res)} packets of {B} detected and classified")
+    check(n_ok >= 0.99 * B, f"engine (a): only {n_ok} of {B} ok")
+    check(all(r.mpdus[0] == mpdu for r in res if r.ok),
+          "engine (a): an ok packet's MPDU differs from the sent one")
+    log(f"engine (a): 32 dB bench stream, {len(res)}/{B} detected, {n_ok} ok "
+        f"(rx_chain_count: {chain_ok} ok), {secs:.2f} s host clock")
+
+    # (b) daemon-shaped traffic
+    rng = np.random.default_rng(23)
+    stream, sent = daemon_stream(rng)
+    log(f"engine (b): {len(sent)} packets in {N_BLOCKS} blocks of {BLOCK} + "
+        f"{HALO} halo, 30 dB")
+    timing = {True: [], False: []}
+    # the first pass warms the allocator and the per-config constants and
+    # is not timed; then bucket-only and speculative passes alternate
+    for i, spec in enumerate((False, False, True, True, False)):
+        eng = PRX.RxEngine(nrx=1, speculate=spec)
+        got, kinds, secs = counted(lambda: run_blocks(eng, stream))
+        check_sent(got, sent, f"engine (b) speculate={spec}")
+        if i == 0:
+            log(f"engine (b) warm-up pass: {1e3 * sum(secs) / N_BLOCKS:.1f} "
+                "ms/block")
+            continue
+        timing[spec].append(sum(secs))
+        n_spec = kinds.count("spec")
+        ms = 1e3 * sum(secs) / N_BLOCKS
+        log(f"engine (b) speculate={spec}: {len(got)} packets, "
+            f"{n_spec} speculative blocks, {ms:.1f} ms/block, "
+            f"{len(got) / sum(secs):,.0f} pkt/s, "
+            f"{N_BLOCKS * BLOCK / sum(secs) / 1e6:.2f} Msamples/s")
+        if spec:
+            check(n_spec >= 4, f"engine (b): only {n_spec} speculative blocks")
+
+    # (c) 2 antennas: HT MCS8-15 and VHT 2 SS through a 2x2 channel
+    from gr_ieee80211_tpu.gold import channel
+    rng = np.random.default_rng(29)
+    parts, sent2, pos = [], [], 400
+    for i in range(24):
+        fmt = Fmt.HT if i % 2 == 0 else Fmt.VHT
+        mcs = 8 + (i // 2) % 8 if fmt == Fmt.HT else (i // 2) % 9
+        wave, fields = make_packet(rng, fmt, mcs, nss=2,
+                                   n_bytes=int(rng.integers(100, 1501)))
+        h = np.eye(2) + 0.3 * (rng.normal(size=(2, 2))
+                               + 1j * rng.normal(size=(2, 2)))
+        parts += [np.zeros((2, 400), complex), channel.mimo_channel(wave, h)]
+        sent2.append((pos, fields))
+        pos += 400 + wave.shape[-1]
+    x2 = np.concatenate(parts + [np.zeros((2, 400), complex)], axis=1)
+    x2 = channel.awgn(x2, 10 ** (-35 / 20), rng).astype(np.complex64)
+    res2 = counted(lambda: PRX.RxEngine(nrx=2).process(x2))
+    check_sent(res2, sent2, "engine (c) 2x2")
+    log(f"engine (c): {len(res2)}/24 HT MCS8-15 / VHT 2-SS packets decoded "
+        "on 2 antennas")
+    log(f"engine: kernel launches in the engine runs: {launches}")
+    check(launches["acs_sweep"] > 0 and launches["traceback_sweep"] > 0,
+          f"the engine runs never launched K1/K2: {launches}")
+    return launches, timing
+
+
+def phase_engine_reference(torch, PRX):
+    """(d) a small mixed stream through the engine on the card and on the
+    CPU (the kernels' twins): the same per-packet results.  LTF timing
+    may move by <= 2 samples at a near-tie of the flat autocorrelation
+    top (sums taken in another order), then the bytes must still agree."""
+    from gr_ieee80211_tpu.gold import channel
+    from gr_ieee80211_tpu.spec.params import Fmt
+    rng = np.random.default_rng(31)
+    specs = [(Fmt.L, 3, 1, 400, 1), (Fmt.HT, 5, 1, 700, 1),
+             (Fmt.VHT, 4, 1, 500, 1), (Fmt.HT, 2, 1, 900, 3),
+             (Fmt.VHT, 6, 1, 1200, 2), (Fmt.VHT, 0, 1, 0, 1),
+             (Fmt.L, 6, 1, 200, 1), (Fmt.VHT, 8, 1, 300, 1)]
+    parts = []
+    for fmt, mcs, nss, nb, nm in specs:
+        wave, _ = make_packet(rng, fmt, mcs, nss, nb, nm)
+        parts += [np.zeros(700, complex), channel.apply_cfo(wave[0], 700.0)]
+    x = channel.awgn(np.concatenate(parts + [np.zeros(700)]),
+                     10 ** (-26 / 20), rng).astype(np.complex64)
+    got = {d: PRX.RxEngine(nrx=1, device=d).process(x)
+           for d in ("cuda", "cpu")}
+    g, c = got["cuda"], got["cpu"]
+    check(len(g) == len(c) == len(specs),
+          f"engine (d): {len(g)} results on the card, {len(c)} on the CPU")
+    for a, b in zip(g, c):
+        for f in ("ok", "fmt", "mcs", "nss", "trig", "psdu", "mpdus",
+                  "is_ndp"):
+            check(getattr(a, f) == getattr(b, f),
+                  f"engine (d): card and CPU differ in {f}")
+        check(abs(a.start - b.start) <= 2, "engine (d): timing differs")
+    log(f"engine (d): {len(g)}-packet mixed stream, card == CPU per packet "
+        f"({sum(r.ok for r in g)} ok)")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -223,6 +575,8 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     from gr_ieee80211_tpu_torch.models import rx as PRX
+    from gr_ieee80211_tpu_torch.ops import cuda_lib as CL
+    from gr_ieee80211_tpu_torch.ops import frontend as FE
     from gr_ieee80211_tpu_torch.ops import viterbi_kernels as VK
     from gr_ieee80211_tpu_torch.ops.cplx import from_numpy_cf
     check("jax" not in sys.modules, "the port imported jax")
@@ -234,20 +588,25 @@ def main() -> int:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
 
-    _, secs, build_log = VK.build()
-    log(f"build: {secs:.1f} s")
+    _, secs, build_log = CL.build()
+    log(f"build: {secs:.1f} s ({len(CL.sources())} sources)")
     for line in build_log.splitlines():
-        if "registers" in line or "spill" in line:
+        if "registers" in line or "spill" in line or "Compiling" in line:
             log(f"  {line.strip()}")
 
-    kernels = phase_kernels(torch, VK)
+    kernels = phase_kernels(torch, VK) + phase_kernels_extra(torch, VK, FE)
     bench = bench_streams()
-    launches = phase_chain(torch, VK, PRX, from_numpy_cf, bench)
+    launches, chain_ok = phase_chain(torch, VK, CL, PRX, from_numpy_cf, bench)
     phase_reference(torch, PRX, from_numpy_cf, bench)
+    engine_launches, _ = phase_engine(torch, CL, PRX, bench, chain_ok)
+    phase_engine_reference(torch, PRX)
     check("jax" not in sys.modules, "jax was imported")
 
     for k in kernels:
-        k["launches"] = launches[k["name"]]
+        k["on_path"] = k["name"] in ("acs_sweep", "traceback_sweep")
+        k["launches_chain"] = launches[k["name"]]
+        k["launches_engine"] = engine_launches[k["name"]]
+        k["launches"] = k["launches_chain"] + k["launches_engine"]
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

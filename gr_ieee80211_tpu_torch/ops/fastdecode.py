@@ -151,9 +151,9 @@ def _hard_inverse(hard_flat: torch.Tensor, cr: str,
 
 
 def _mismatch(d: torch.Tensor, hard_flat: torch.Tensor, cr: str,
-              n_trellis: int):
-    """(B, 2*n_trellis) 0/1 indicator of kept coded positions where
-    re-encode(d) != hard."""
+              n_trellis: int, live: torch.Tensor | None = None):
+    """(B, 2*n_trellis) 0/1 indicator of kept (and live) coded positions
+    where re-encode(d) != hard."""
     B = d.shape[0]
     h = F.pad(d, (6, 0))
 
@@ -164,30 +164,43 @@ def _mismatch(d: torch.Tensor, hard_flat: torch.Tensor, cr: str,
     c = torch.remainder(tap(0) + tap(1) + tap(2) + tap(3) + tap(6), 2)
     re = torch.stack([a, c], dim=-1).reshape(B, 2 * n_trellis)
     keep = _keep_on(cr, 2 * n_trellis, d.device)
-    return torch.abs(re - hard_flat) * keep[None, :]
+    mism = torch.abs(re - hard_flat) * keep[None, :]
+    return mism if live is None else mism * live
 
 
-def _hard(coded_llr: torch.Tensor, cr: str, n_trellis: int) -> torch.Tensor:
-    """(B, 2*n_trellis) depunctured hard bits (f32 0/1, punctured = 0)."""
-    return V.depuncture_flat((coded_llr > 0).to(torch.float32), cr, n_trellis)
+def _hard(coded_llr: torch.Tensor, cr: str, n_trellis: int,
+          n_real: torch.Tensor | None):
+    """(hard, live): (B, 2*n_trellis) depunctured hard bits (f32 0/1,
+    punctured = 0) and, for per-row real lengths ``n_real``, the (B, 2T)
+    f32 mask of positions < 2*n_real that zeroes ``hard`` beyond them
+    (None without ``n_real``)."""
+    hard = V.depuncture_flat((coded_llr > 0).to(torch.float32), cr, n_trellis)
+    if n_real is None:
+        return hard, None
+    pos = torch.arange(2 * n_trellis, device=hard.device)
+    live = (pos[None, :] < 2 * n_real.to(torch.int64)[:, None]
+            ).to(torch.float32)
+    return hard * live, live
 
 
-def inverse_and_syndrome(coded_llr: torch.Tensor, cr: str, n_trellis: int):
+def inverse_and_syndrome(coded_llr: torch.Tensor, cr: str, n_trellis: int,
+                         n_real: torch.Tensor | None = None):
     """Algebraic-invert and re-encode-check a batch of punctured LLRs.
 
     Returns (d8 (B, T) uint8 candidate, syn (B,) int32 per-row hard-error
-    count over kept positions)."""
-    hard = _hard(coded_llr, cr, n_trellis)
+    count over kept positions in [0, n_real)).  The causal stencil keeps
+    bits [0, n_real) exact when the stream beyond is masked."""
+    hard, live = _hard(coded_llr, cr, n_trellis, n_real)
     d = _hard_inverse(hard, cr, n_trellis)
-    syn = _mismatch(d, hard, cr, n_trellis).sum(dim=1).to(torch.int32)
+    syn = _mismatch(d, hard, cr, n_trellis, live).sum(dim=1).to(torch.int32)
     return d.to(torch.uint8), syn
 
 
 def _mism_recompute(coded_llr: torch.Tensor, d8: torch.Tensor, cr: str,
-                    n_trellis: int):
+                    n_trellis: int, n_real: torch.Tensor | None = None):
     """The (B, 2T) mismatch indicator of the candidate ``d8``."""
-    return _mismatch(d8.to(torch.float32), _hard(coded_llr, cr, n_trellis),
-                     cr, n_trellis)
+    hard, live = _hard(coded_llr, cr, n_trellis, n_real)
+    return _mismatch(d8.to(torch.float32), hard, cr, n_trellis, live)
 
 
 def _window_dirty(mism: torch.Tensor, n_trellis: int,
@@ -251,16 +264,20 @@ def _full(coded_llr: torch.Tensor, cr: str, n_trellis: int) -> torch.Tensor:
 
 def adaptive_decode(coded_llr: torch.Tensor, cr: str, n_trellis: int,
                     fallback: int = FALLBACK_B,
+                    n_real: torch.Tensor | None = None,
                     win_tiers: tuple = WIN_TIERS,
                     record: list | None = None) -> torch.Tensor:
     """Depuncture + decode with the syndrome-gated fast path.
 
     coded_llr: (B, >=n_kept) punctured LLRs (positive = coded bit 1).
+    n_real: optional (B,) true trellis length per row of a canonicalized
+    (rounded-up) bucket: the syndrome and the fast path then cover only
+    each row's real region.
     Returns (B, n_trellis) uint8, equal to the reference's bits on every
     tier.
     ``record``: a list the name of the tier that ran is appended to."""
     B = coded_llr.shape[0]
-    d8, syn = inverse_and_syndrome(coded_llr, cr, n_trellis)
+    d8, syn = inverse_and_syndrome(coded_llr, cr, n_trellis, n_real)
     need = syn > 0
     n_fail = int(need.sum().item())
 
@@ -282,7 +299,7 @@ def adaptive_decode(coded_llr: torch.Tensor, cr: str, n_trellis: int,
             return done(f"tile{k}",
                         _tile(k, coded_llr, d8, need, cr, n_trellis))
     if use_win and 2 * int(syn.sum().item()) <= 32 * wtiers[0]:
-        mism = _mism_recompute(coded_llr, d8, cr, n_trellis)
+        mism = _mism_recompute(coded_llr, d8, cr, n_trellis, n_real)
         dirty = _window_dirty(mism, n_trellis, nwin)
         n_dirty = int(dirty.sum().item())
         for k in reversed(wtiers):

@@ -1,13 +1,18 @@
 """Batched RX front end: STF detection, trigger dedup, window gathers,
 LTF timing, CFO estimation and derotation.
 
-Port of ``gr_ieee80211_tpu.ops.frontend`` for the known-config receive
-chain.  The reference's TPU workarounds (the blocked 64-sample gathers
-with their shift cascade, the two-level ``_compact_indices``) become
-direct indexing and ``torch.nonzero``; their semantics are kept: windows
-read zeros past the stream end, gathers stage samples through bfloat16
-as the reference's chain does, and candidate lists are ascending and
-padded with -1.
+Port of ``gr_ieee80211_tpu.ops.frontend``.  The reference's TPU
+workarounds (the blocked 64-sample gathers with their shift cascade, the
+two-level ``_compact_indices``) become direct indexing and
+``torch.nonzero``; their semantics are kept: windows read zeros past the
+stream end, the payload and sync gathers stage samples through bfloat16
+as the reference's do (the SIG and NDP gathers stay float32), and
+candidate lists are ascending and padded with -1.
+
+The reference's Pallas derotation (``derotate_pallas``, K3) is the CUDA
+kernel behind :func:`derotate` (``csrc/derotate.cu``), with its plain
+twin :func:`derotate_ref`.  Like the reference, the receive chain does
+not run it: ``derotate_batch`` uses the factored-phasor form.
 """
 from __future__ import annotations
 
@@ -16,14 +21,53 @@ import torch
 import torch.nn.functional as F
 
 from .cplx import CF, expj
+from .cuda_lib import counted, launch, on_cuda, require
 
 FS = 20e6
 
 _MOVSUM_BLK = 1 << 15
+#: block length of the reference's float32 prefix sums (XLA:CPU scans a
+#: cumulative sum in blocks of 16, see :func:`_cumsum_ordered`)
+_SCAN_BASE = 16
+
+
+def _cumsum_ordered(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive float32 cumsum along the last axis, summed in the order
+    the reference's ``jnp.cumsum`` takes on the CPU: each block of 16 in
+    sequence, the block totals scanned the same way (recursively), and
+    each block offset by the exclusive prefix of the totals before it.
+
+    ``torch.cumsum`` accumulates in another order (in float64 on the
+    CPU), and the last-bit differences move LTF timing on the flat top of
+    the autocorrelation peak; in this order the moving sums, and so the
+    timing, are bit-equal to the reference's."""
+    b = _SCAN_BASE
+    n = x.shape[-1]
+    nb = -(-n // b)
+    xb = F.pad(x, (0, nb * b - n)).reshape(*x.shape[:-1], nb, b)
+    for i in range(1, min(b, n)):      # a lone short block needs n - 1
+        xb[..., i] += xb[..., i - 1]
+    if nb == 1:
+        return xb[..., 0, :n]
+    excl = F.pad(_cumsum_ordered(xb[..., -1])[..., :-1], (1, 0))
+    return (xb + excl[..., None]).reshape(*x.shape[:-1], nb * b)[..., :n]
+
+
+def _movsums(xs: list[torch.Tensor], ws: list[int]) -> list[torch.Tensor]:
+    """Moving sums ``_movsum(x, w)`` of several arrays with one leading
+    shape, from ONE ordered cumsum over their stack.  The cumsum is
+    causal, so right-padding each array to the longest leaves its prefix
+    sums unchanged; one call pays the sequential scan's launches once."""
+    n = max(x.shape[-1] for x in xs)
+    c = F.pad(_cumsum_ordered(torch.stack(
+        [F.pad(x, (0, n - x.shape[-1])) for x in xs])), (1, 0))
+    return [c[i, ..., w: x.shape[-1] + 1] - c[i, ..., : x.shape[-1] + 1 - w]
+            for i, (x, w) in enumerate(zip(xs, ws))]
 
 
 def _movsum(x: torch.Tensor, w: int) -> torch.Tensor:
-    """Moving window sum along the last axis, out[n] = sum x[n:n+w].
+    """Moving window sum along the last axis, out[n] = sum x[n:n+w], from
+    float32 cumsum differences in the reference's summation order.
 
     Long 1-D inputs are cut into 32k blocks with w-sample overlap and the
     cumsum restarts per block: a single float32 cumsum-difference drifts
@@ -31,15 +75,22 @@ def _movsum(x: torch.Tensor, w: int) -> torch.Tensor:
     assert w - 1 <= _MOVSUM_BLK, w
     n_out = x.shape[-1] - w + 1
     if x.ndim > 1 or x.shape[-1] <= _MOVSUM_BLK:
-        c = F.pad(torch.cumsum(x, dim=-1), (1, 0))
-        return c[..., w:] - c[..., :-w]
+        return _movsums([x], [w])[0]
     K = _MOVSUM_BLK
     nblk = -(-n_out // K)
     xp = F.pad(x, (0, (nblk + 1) * K - x.shape[-1]))
     main = xp[: nblk * K].reshape(nblk, K)
     ov = xp[K:].reshape(nblk, K)[:, : w - 1]
-    c = F.pad(torch.cumsum(torch.cat([main, ov], dim=1), dim=-1), (1, 0))
+    c = F.pad(_cumsum_ordered(torch.cat([main, ov], dim=1)), (1, 0))
     return (c[:, w:] - c[:, :-w]).reshape(-1)[:n_out]
+
+
+def _movcount(flags: torch.Tensor, w: int) -> torch.Tensor:
+    """Moving count of 0/1 flags over w, out[n] = sum flags[n:n+w], as
+    exact int32 sums (equal to the reference's float32 sums of flags)."""
+    c = F.pad(torch.cumsum(flags.to(torch.int32), dim=-1, dtype=torch.int32),
+              (1, 0))
+    return c[..., w:] - c[..., :-w]
 
 
 _POWER_FLOOR_REL = 1e-3
@@ -80,9 +131,9 @@ def stf_metric_strided(x: CF) -> torch.Tensor:
 
     rows = CF(mk(x.re), mk(x.im))
     prod = rows[:, : rows.shape[-1] - 16].mul_conj(rows[:, 16:])
-    cre = _movsum(_chunk_rows(prod.re), 48 // s)
-    cim = _movsum(_chunk_rows(prod.im), 48 // s)
-    p = _movsum(_chunk_rows(rows.abs2()), 64 // s)
+    cre, cim, p = _movsums([_chunk_rows(prod.re), _chunk_rows(prod.im),
+                            _chunk_rows(rows.abs2())],
+                           [48 // s, 48 // s, 64 // s])
     k = DETECT_ROW // s
     m = (torch.sqrt(cre[:, :k] ** 2 + cim[:, :k] ** 2)
          / torch.maximum(p[:, :k], _floor(p)))
@@ -105,18 +156,18 @@ def detect_plateaus(m: torch.Tensor, thresh: float = 0.3, run: int = 20,
     ``confirm=(win, need)`` keeps a start only if >= need of the win
     points from it are above threshold; ``suppress`` drops a start with
     another start within the preceding ``suppress`` points."""
-    above = (m > thresh).to(torch.float32)
-    run_ok = _movsum(above, run) >= run
+    above = (m > thresh).to(torch.int32)
+    run_ok = _movcount(above, run) >= run
     nr = run_ok.shape[-1]
     prev = F.pad(above[:-1], (1, 0))
     start = run_ok & (prev[:nr] == 0) & (above[:nr] > 0)
     if confirm is not None:
         win, need = confirm
-        cnt = _movsum(F.pad(above, (0, win)), win)[:nr]
+        cnt = _movcount(F.pad(above, (0, win)), win)[:nr]
         start = start & (cnt >= need)
     if suppress:
-        padded = F.pad(start.to(torch.float32), (suppress, 0))
-        prev_cnt = _movsum(padded, suppress)[:nr]
+        prev_cnt = _movcount(F.pad(start.to(torch.int32), (suppress, 0)),
+                             suppress)[:nr]
         start = start & (prev_cnt == 0)
     return nonzero_padded(start, max_out).to(torch.int32)
 
@@ -145,10 +196,18 @@ def dedup_triggers_device(cand: torch.Tensor, max_out: int,
                        torch.full_like(pos, -1)).to(torch.int32)
 
 
+def gather_windows(x: CF, starts: torch.Tensor, n: int) -> CF:
+    """x (N,) + starts (B,) (0 <= start <= N) -> (B, n) float32 windows;
+    samples past the stream end read as zeros."""
+    def one(v):
+        vp = F.pad(v.to(torch.float32), (0, n))
+        return vp.unfold(0, n, 1)[starts.to(torch.int64)]
+    return CF(one(x.re), one(x.im))
+
+
 def gather_windows_bf16(x: CF, starts: torch.Tensor, n: int) -> CF:
-    """x (N,) + starts (B,) (0 <= start <= N) -> (B, n) windows through a
-    bfloat16 staging copy of the stream (~49 dB SQNR), returned as
-    float32; samples past the stream end read as zeros."""
+    """Like :func:`gather_windows` but through a bfloat16 staging copy of
+    the stream (~49 dB SQNR), returned as float32."""
     def one(v):
         vp = F.pad(v.to(torch.bfloat16), (0, n))
         return vp.unfold(0, n, 1)[starts.to(torch.int64)].to(torch.float32)
@@ -167,8 +226,8 @@ def ltf_fine_sync_cfo(wins: CF, cfo0: torch.Tensor):
     npts = n - 128
     dev = wins.device
     prod = wins[:, : n - 64].mul_conj(wins[:, 64:])
-    a = CF(_movsum(prod.re, 64), _movsum(prod.im, 64))   # (B, n-127)
-    pw = _movsum(wins.abs2(), 64)
+    are, aim, pw = _movsums([prod.re, prod.im, wins.abs2()], [64] * 3)
+    a = CF(are, aim)                                      # (B, n-127)
     den = torch.sqrt(torch.clamp(pw[:, :npts] * pw[:, 64: 64 + npts],
                                  min=1e-24))
     ac = a[:, :npts].abs() / den
@@ -222,8 +281,50 @@ def _derotate_factored(wins: CF, cfo: torch.Tensor, n: int) -> CF:
     return CF(out.re.reshape(B, -1)[:, :n], out.im.reshape(B, -1)[:, :n])
 
 
+#: float32(-2 pi / FS): the reference's derotation rate per Hz of CFO
+#: (a Python float multiplying a float32 array rounds to float32 first)
+W_SCALE = float(np.float32(-2 * np.pi / FS))
+
+
+def derotate_ref(wins: CF, cfo: torch.Tensor, n: int) -> CF:
+    """Plain twin of K3: wins (B, n) * exp(j w t), w = W_SCALE * cfo, the
+    phase w * t in float32 (the Pallas ``_derotate_kernel``'s order)."""
+    w = W_SCALE * cfo
+    t = torch.arange(n, dtype=torch.float32, device=wins.device)
+    ph = w[:, None] * t[None, :]
+    c, s = torch.cos(ph), torch.sin(ph)
+    return CF(wins.re * c - wins.im * s, wins.re * s + wins.im * c)
+
+
+@counted
+def derotate(wins: CF, cfo: torch.Tensor, n: int) -> CF:
+    """wins (B, n) * exp(-j 2pi cfo t / FS) in one pass (K3, the port of
+    ``derotate_pallas``).  CPU tensors take :func:`derotate_ref`; CUDA
+    tensors launch the kernel or raise."""
+    B = wins.shape[0]
+    require(wins.re.shape == (B, n) and wins.im.shape == (B, n)
+            and cfo.shape == (B,), "derotate shapes")
+    require(all(t.dtype == torch.float32 for t in (wins.re, wins.im, cfo)),
+            "derotate takes float32")
+    if not on_cuda(wins.re, wins.im, cfo):
+        return derotate_ref(wins, cfo, n)
+    re, im, cfo = (t.contiguous() for t in (wins.re, wins.im, cfo))
+    out_re = torch.empty_like(re)
+    out_im = torch.empty_like(im)
+    if B == 0 or n == 0:
+        return CF(out_re, out_im)
+    launch("gr80211_derotate", re.device, re.data_ptr(), im.data_ptr(),
+           cfo.data_ptr(), out_re.data_ptr(), out_im.data_ptr(), n, B,
+           W_SCALE)
+    derotate.launches += 1
+    return CF(out_re, out_im)
+
+
 def derotate_batch(x: CF, starts: torch.Tensor, cfo: torch.Tensor,
-                   n: int) -> CF:
-    """Gather bfloat16-staged (B, n) windows at ``starts`` and derotate
-    each by its CFO."""
-    return _derotate_factored(gather_windows_bf16(x, starts, n), cfo, n)
+                   n: int, low_prec: bool = False) -> CF:
+    """Gather (B, n) windows at ``starts`` and derotate each by its CFO
+    (factored phasors).  ``low_prec`` stages the gather through bfloat16
+    (the payload windows); the default float32 gather serves the SIG and
+    NDP windows."""
+    gw = gather_windows_bf16 if low_prec else gather_windows
+    return _derotate_factored(gw(x, starts, n), cfo, n)

@@ -3,9 +3,8 @@
 All functions take (B, ...) :class:`CF` pairs with the packet batch
 leading, in the reference's layouts: DFT over (..., 64) windows onto the
 fftshifted grid, channel estimation and refinement, equalization, LLR
-demap, the deinterleave/deparse gather, descrambling and byte packing.
-This slice covers the single-stream receive path; the 2x2 ZF equalizer
-raises ``NotImplementedError``.
+demap, the deinterleave/deparse gather, descrambling and byte packing,
+for up to two receive antennas and two spatial streams (ZF/MRC).
 """
 from __future__ import annotations
 
@@ -324,30 +323,58 @@ def refine_chanest_data(grids: CF, h: CF, pilot_h: CF,
 
 def equalize_and_demap(grids: CF, h: CF, pilot_h: CF,
                        cfg: PhyConfig) -> torch.Tensor:
-    """Per-symbol pilot phase correction + equalization + LLR demap (the
-    reference's ``nrx_axis=True`` layout).
+    """Per-symbol pilot phase correction + (ZF/MRC) equalization + LLR
+    demap (the reference's ``nrx_axis=True`` layout), nrx <= 2, nss <= 2.
 
     grids: (B, nrx, nsym, 64); h: (B, nrx, nss, 64); pilot_h (B, nrx, 4).
-    Returns interleaved LLRs (B, nss, nsym*ncbpss) float32.  Single
-    stream, single antenna only in this slice."""
+    Returns interleaved LLRs (B, nss, nsym*ncbpss) float32."""
     B, nrx, nsym, _ = grids.shape
-    if cfg.nss != 1 or nrx != 1:
-        raise NotImplementedError("ZF/MRC equalization (nss or nrx > 1) is "
-                                  "not ported yet")
     dev = grids.device
     legacy = cfg.fmt == Fmt.L
     didx = _idx("DATA_IDX_L" if legacy else "DATA_IDX_NL", dev)
     pidx = _idx("PILOT_IDX", dev)
-    p0 = _t(_pilot_matrix(cfg.fmt, cfg.nss, cfg.nsym)[:, 0], dev)
-    exp_p = CF(pilot_h.re[:, :, None, :] * p0[None, None],
-               pilot_h.im[:, :, None, :] * p0[None, None])
+    pilots = _t(_pilot_matrix(cfg.fmt, cfg.nss, cfg.nsym), dev)  # (nsym,nss,4)
+    if cfg.fmt == Fmt.HT and cfg.nss == 2:
+        # HT 2-SS: the expected pilot is each stream's pilot channel times
+        # its own polarity, summed over the streams
+        hp = h[:, :, :, pidx]                                # (B,nrx,nss,4)
+        pt = pilots.permute(1, 0, 2)[None, None]             # (1,1,nss,nsym,4)
+        exp_p = CF((hp.re[:, :, :, None, :] * pt).sum(dim=2),
+                   (hp.im[:, :, :, None, :] * pt).sum(dim=2))
+    else:
+        p0 = pilots[:, 0]                                    # (nsym, 4)
+        exp_p = CF(pilot_h.re[:, :, None, :] * p0[None, None],
+                   pilot_h.im[:, :, None, :] * p0[None, None])
     rx_p = grids[:, :, :, pidx]                              # (B,nrx,nsym,4)
     ph = csum(rx_p.mul_conj(exp_p), dim=(1, 3)).unit()       # (B, nsym)
     grids = grids * CF(ph.re[:, None, :, None], -ph.im[:, None, :, None])
     y = grids[:, :, :, didx]                                 # (B,nrx,nsym,nsd)
     hd = h[:, :, :, didx]                                    # (B,nrx,nss,nsd)
-    eq = (y[:, 0] / hd[:, 0, 0][:, None, :])[:, None]        # (B,1,nsym,nsd)
-    llr = llr_demap(eq, cfg.nbpscs)
+    if cfg.nss == 1 and nrx == 1:
+        eq = (y[:, 0] / hd[:, 0, 0][:, None, :])[:, None]    # (B,1,nsym,nsd)
+    else:
+        # ZF through the normal equations; for nss <= 2 the Gram diagonal
+        # is real
+        h0 = hd[:, :, 0]
+        g00 = h0.abs2().sum(dim=1)                           # (B, nsd)
+        r0 = csum(h0.conj().reshape(B, nrx, 1, -1) * y, dim=1)
+        if cfg.nss == 1:
+            eq = (r0 * (1.0 / torch.clamp(g00, min=1e-20))[:, None, :])[:, None]
+        else:
+            h1 = hd[:, :, 1]
+            g11 = h1.abs2().sum(dim=1)
+            g01 = csum(h0.conj().reshape(B, nrx, -1) * h1, dim=1)  # (B, nsd)
+            r1 = csum(h1.conj().reshape(B, nrx, 1, -1) * y, dim=1)
+            det = g00 * g11 - g01.abs2()                     # real (B, nsd)
+            inv = 1.0 / torch.where(det.abs() > 1e-20, det,
+                                    torch.full_like(det, 1e-20))
+            e0 = r0 * g11[:, None, :] - r1 * CF(g01.re[:, None, :],
+                                                g01.im[:, None, :])
+            e1 = r1 * g00[:, None, :] - r0 * CF(g01.re[:, None, :],
+                                                -g01.im[:, None, :])
+            eq = CF(torch.stack([e0.re, e1.re], dim=1) * inv[:, None, None, :],
+                    torch.stack([e0.im, e1.im], dim=1) * inv[:, None, None, :])
+    llr = llr_demap(eq, cfg.nbpscs)                          # (B,nss,nsym,ncbpss)
     return llr.reshape(B, cfg.nss, -1)
 
 

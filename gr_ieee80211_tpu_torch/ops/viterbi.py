@@ -1,8 +1,14 @@
-"""Depuncturing for the 802.11 BCC (port of ``gr_ieee80211_tpu.ops.viterbi``).
+"""Batched soft Viterbi decoder and depuncturing for the 802.11 BCC
+(port of ``gr_ieee80211_tpu.ops.viterbi``).
 
-Only the depuncture half lives here for now: the trellis decode on the
-receive chain's path is the hand-written kernel pair in
-:mod:`.viterbi_kernels`.
+:func:`viterbi_decode` is the reference's plain-array decoder, which the
+SIG fields use (T = 24, 26, 48).  Its semantics differ from the payload
+kernels' (:mod:`.viterbi_kernels`) and are kept exactly: (B, 64) metrics
+with predecessors ``2s mod 64`` and ``2s+1 mod 64``, a strict
+``cand1 > cand0`` choice, zero-LLR padding to a ``CHUNK`` = 54 multiple
+with renormalization once per chunk, and traceback from state 0 or from
+the argmax of the final metrics.  It is plain torch ops (a loop over the
+trellis), as the reference computes it outside any Pallas kernel.
 """
 from __future__ import annotations
 
@@ -12,6 +18,64 @@ import numpy as np
 import torch
 
 from gr_ieee80211_tpu.spec import tables as T
+
+NEG = -1e9
+#: trellis steps per renormalization (the reference's scan chunk)
+CHUNK = 54
+
+
+@functools.lru_cache(maxsize=None)
+def _acs_consts(device: torch.device):
+    """(c0a, c0b, c1a, c1b) (1, 64) float32: coded bits of the transitions
+    from p0 = 2s' mod 64 and p1 = p0 + 1 into s'."""
+    return tuple(torch.from_numpy(c).to(device)[None, :]
+                 for c in T.viterbi_acs_tables())
+
+
+def viterbi_decode(llr_pairs: torch.Tensor,
+                   traceback_from_zero: bool = True) -> torch.Tensor:
+    """(B, T, 2) float32 depunctured LLRs (positive = coded bit 1) ->
+    (B, T) uint8 bits, bit-equal to the reference's ``viterbi_decode``.
+
+    Rows are independent, so callers may stack trellises of different
+    lengths that pad to the same CHUNK multiple (zero LLRs past each
+    row's end) into one call."""
+    B, n_steps, _ = llr_pairs.shape
+    dev = llr_pairs.device
+    n_pad = -(-n_steps // CHUNK) * CHUNK
+    x = torch.nn.functional.pad(llr_pairs.to(torch.float32),
+                                (0, 0, 0, n_pad - n_steps))
+    c0a, c0b, c1a, c1b = _acs_consts(dev)
+    # the products are exact (0/1 coefficients), so taking them for every
+    # step at once leaves the reference's sums (pm + a*l0) + b*l1 unchanged
+    l0 = x[:, :, 0:1].transpose(0, 1)                 # (T, B, 1)
+    l1 = x[:, :, 1:2].transpose(0, 1)
+    a0, b0 = c0a * l0, c0b * l1                       # (T, B, 64)
+    a1, b1 = c1a * l0, c1b * l1
+    pm = torch.full((B, 64), NEG, dtype=torch.float32, device=dev)
+    pm[:, 0] = 0.0
+    dec = torch.empty((n_pad, B, 64), dtype=torch.bool, device=dev)
+    for t in range(n_pad):
+        pme = pm.reshape(B, 32, 2)
+        p0 = pme[:, :, 0].repeat(1, 2)
+        p1 = pme[:, :, 1].repeat(1, 2)
+        cand0 = (p0 + a0[t]) + b0[t]
+        cand1 = (p1 + a1[t]) + b1[t]
+        torch.gt(cand1, cand0, out=dec[t])
+        pm = torch.maximum(cand0, cand1)
+        if (t + 1) % CHUNK == 0:
+            pm = pm - pm.max(dim=1, keepdim=True).values
+    if traceback_from_zero:
+        s = torch.zeros(B, dtype=torch.int64, device=dev)
+    else:
+        s = torch.argmax(pm, dim=1)
+    bits = torch.empty((B, n_pad), dtype=torch.uint8, device=dev)
+    dec8 = dec.to(torch.int64)
+    for t in range(n_pad - 1, -1, -1):
+        bits[:, t] = s >> 5
+        d = torch.gather(dec8[t], 1, s[:, None])[:, 0]
+        s = (2 * s) % 64 + d
+    return bits[:, :n_steps]
 
 
 @functools.lru_cache(maxsize=None)
@@ -40,3 +104,8 @@ def depuncture_flat(llr: torch.Tensor, cr: str, n_steps: int) -> torch.Tensor:
 def depuncture(llr: torch.Tensor, cr: str, n_steps: int) -> torch.Tensor:
     """(B, n_coded) punctured LLRs -> (B, n_steps, 2) with zeros inserted."""
     return depuncture_flat(llr, cr, n_steps).reshape(llr.shape[0], n_steps, 2)
+
+
+def decode_coded_llrs(llr: torch.Tensor, cr: str, n_steps: int) -> torch.Tensor:
+    """Depuncture + decode: (B, n_coded) LLRs -> (B, n_steps) uint8."""
+    return viterbi_decode(depuncture(llr, cr, n_steps))

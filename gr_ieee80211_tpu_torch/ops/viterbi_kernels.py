@@ -1,12 +1,14 @@
-"""Viterbi forward ACS (K1) and traceback (K2) for the 802.11 BCC.
+"""Viterbi forward ACS (K1) and traceback (K2) for the 802.11 BCC, and
+their 4-steps-per-byte packed variants (K4, K5).
 
 Port of ``gr_ieee80211_tpu.ops.viterbi_pallas``.  The kernels are CUDA C++
-for sm_90a in ``csrc/viterbi.cu``, built with ``nvcc`` into a shared
-library with a plain C interface at first use and loaded with ``ctypes``.
-Beside each kernel sits its plain PyTorch twin (``acs_sweep_ref``,
-``traceback_ref``) with the same operation order and renormalization
-cadence; the wrappers take the twin only for tensors on the CPU and, for
-CUDA tensors, launch the kernel or raise.
+for sm_90a in ``csrc/viterbi.cu``, built at first use by
+:mod:`.cuda_lib`.  Beside each kernel sits its plain PyTorch twin
+(``acs_sweep_ref``, ``traceback_ref``, ``acs_sweep_packed_ref``,
+``traceback_packed_ref``) with the same operation order and
+renormalization cadence; the wrappers take the twin only for tensors on
+the CPU and, for CUDA tensors, launch the kernel or raise.  As in the
+reference, only K1/K2 are on the decode path; K4/K5 stand alone.
 
 Semantics held bit for bit to the Pallas kernels:
 
@@ -23,91 +25,19 @@ B needs no padding here.
 """
 from __future__ import annotations
 
-import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-import time
-from pathlib import Path
 
 import numpy as np
 import torch
+
+from .cuda_lib import counted, launch, on_cuda as _on_cuda, require as _require
+from .cuda_lib import reset_launch_counts  # noqa: F401  (re-exported)
 
 NEG = -1e9
 T_CHUNK = 64
 #: the reference's lane-tile width; kept only for the measured
 #: segmented-decode rule (:func:`segmented_pays`)
 B_TILE = 1024
-
-_SRC = Path(__file__).resolve().parent.parent / "csrc" / "viterbi.cu"
-_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-Xptxas", "-v", "-shared",
-              "-Xcompiler", "-fPIC")
-
-
-def _nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    cand = os.path.join(cuda_home, "bin", "nvcc")
-    path = cand if os.path.exists(cand) else shutil.which("nvcc")
-    if path is None:
-        raise RuntimeError("nvcc not found: the Viterbi kernels are built "
-                           "from csrc/viterbi.cu on a machine with the CUDA "
-                           "toolkit")
-    return path
-
-
-@functools.lru_cache(maxsize=None)
-def build() -> tuple[Path, float, str]:
-    """Compile ``csrc/viterbi.cu`` (once per source content) and return
-    (library path, build seconds, compiler output).  The library is named
-    by the source's hash, so an edited source never loads a stale build."""
-    src = _SRC.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = _BUILD_DIR / f"libgr80211_viterbi_{tag}.so"
-    if out.exists():
-        return out, 0.0, ""
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_SRC)],
-                          capture_output=True, text=True)
-    secs = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, out)
-    return out, secs, proc.stdout + proc.stderr
-
-
-@functools.lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build()[0]))
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.gr80211_acs_sweep.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, vp]
-    lib.gr80211_acs_sweep.restype = ci
-    lib.gr80211_traceback_sweep.argtypes = [vp, vp, vp, vp, ci, ci, vp]
-    lib.gr80211_traceback_sweep.restype = ci
-    return lib
-
-
-def _require(cond: bool, msg: str):
-    if not cond:
-        raise ValueError(msg)
-
-
-def _on_cuda(*ts: torch.Tensor) -> bool:
-    """True for CUDA tensors, False for CPU tensors (the twin's domain);
-    anything else, or a mix, raises."""
-    kinds = {t.device.type for t in ts}
-    _require(len(kinds) == 1 and kinds <= {"cpu", "cuda"},
-             f"tensors must all be on one CPU or CUDA device, got {kinds}")
-    if "cuda" in kinds:
-        _require(len({t.device for t in ts}) == 1,
-                 "tensors on different CUDA devices")
-    return "cuda" in kinds
 
 
 # ---------------------------------------------------------------------------
@@ -176,14 +106,10 @@ def acs_sweep_ref(llr0: torch.Tensor, llr1: torch.Tensor,
     return dec_lo, dec_hi, p
 
 
-def acs_sweep(llr0: torch.Tensor, llr1: torch.Tensor,
-              pm0: torch.Tensor | None = None):
-    """Forward ACS over the whole trellis (K1).
-
-    llr0, llr1: (T, B) float32, T % 64 == 0; pm0: (64, B) float32 initial
-    metrics (default: pinned to state 0).  Returns (dec_lo, dec_hi)
-    (T, 32, B) uint8 (1 = odd predecessor won) and the final metrics
-    (64, B)."""
+def _acs_args(name: str, llr0: torch.Tensor, llr1: torch.Tensor,
+              pm0: torch.Tensor | None):
+    """Validate K1/K4 inputs; returns (T, B, pm0) with pm0 defaulted to
+    the state-0 pin."""
     n_steps, B = llr0.shape
     if pm0 is None:
         pm0 = state0_metrics(B, llr0.device)
@@ -192,7 +118,35 @@ def acs_sweep(llr0: torch.Tensor, llr1: torch.Tensor,
              f"shapes {tuple(llr0.shape)} {tuple(llr1.shape)} "
              f"{tuple(pm0.shape)}")
     _require(all(t.dtype == torch.float32 for t in (llr0, llr1, pm0)),
-             "acs_sweep takes float32")
+             f"{name} takes float32")
+    return n_steps, B, pm0
+
+
+def _traceback_args(name: str, dec_lo: torch.Tensor, dec_hi: torch.Tensor,
+                    start: torch.Tensor | None) -> torch.Tensor:
+    """Validate K2/K5 inputs; returns start, defaulted to state 0."""
+    B = dec_lo.shape[2]
+    if start is None:
+        start = state0_start(B, dec_lo.device)
+    _require(dec_lo.ndim == 3 and dec_lo.shape[1] == 32
+             and dec_hi.shape == dec_lo.shape and start.shape == (B,),
+             f"{name} shapes")
+    _require(dec_lo.dtype == torch.uint8 and dec_hi.dtype == torch.uint8
+             and start.dtype == torch.int32,
+             f"{name} takes uint8 planes and an int32 start")
+    return start
+
+
+@counted
+def acs_sweep(llr0: torch.Tensor, llr1: torch.Tensor,
+              pm0: torch.Tensor | None = None):
+    """Forward ACS over the whole trellis (K1).
+
+    llr0, llr1: (T, B) float32, T % 64 == 0; pm0: (64, B) float32 initial
+    metrics (default: pinned to state 0).  Returns (dec_lo, dec_hi)
+    (T, 32, B) uint8 (1 = odd predecessor won) and the final metrics
+    (64, B)."""
+    n_steps, B, pm0 = _acs_args("acs_sweep", llr0, llr1, pm0)
     if not _on_cuda(llr0, llr1, pm0):
         return acs_sweep_ref(llr0, llr1, pm0)
     llr0, llr1, pm0 = (t.contiguous() for t in (llr0, llr1, pm0))
@@ -202,19 +156,11 @@ def acs_sweep(llr0: torch.Tensor, llr1: torch.Tensor,
     pm = torch.empty((64, B), dtype=torch.float32, device=dev)
     if B == 0 or n_steps == 0:
         return dec_lo, dec_hi, pm0.clone()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = _lib().gr80211_acs_sweep(
-            llr0.data_ptr(), llr1.data_ptr(), pm0.data_ptr(),
-            dec_lo.data_ptr(), dec_hi.data_ptr(), pm.data_ptr(),
-            n_steps, B, stream)
-    if rc != 0:
-        raise RuntimeError(f"acs_sweep kernel launch failed: cudaError {rc}")
+    launch("gr80211_acs_sweep", dev, llr0.data_ptr(), llr1.data_ptr(),
+           pm0.data_ptr(), dec_lo.data_ptr(), dec_hi.data_ptr(),
+           pm.data_ptr(), n_steps, B)
     acs_sweep.launches += 1
     return dec_lo, dec_hi, pm
-
-
-acs_sweep.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -237,20 +183,15 @@ def traceback_ref(dec_lo: torch.Tensor, dec_hi: torch.Tensor,
     return bits
 
 
+@counted
 def traceback_sweep(dec_lo: torch.Tensor, dec_hi: torch.Tensor,
                     start: torch.Tensor | None = None) -> torch.Tensor:
     """(T, 32, B) uint8 decision planes -> (T, B) uint8 bits (K2).
 
     start: (B,) int32 survivor start state (default 0); the reference's
     one-hot ``mask0`` is ``start`` as a one-hot column."""
+    start = _traceback_args("traceback_sweep", dec_lo, dec_hi, start)
     n_steps, _, B = dec_lo.shape
-    if start is None:
-        start = state0_start(B, dec_lo.device)
-    _require(dec_lo.shape == (n_steps, 32, B) and dec_hi.shape == dec_lo.shape
-             and start.shape == (B,), "traceback_sweep shapes")
-    _require(dec_lo.dtype == torch.uint8 and dec_hi.dtype == torch.uint8
-             and start.dtype == torch.int32,
-             "traceback_sweep takes uint8 planes and an int32 start")
     if not _on_cuda(dec_lo, dec_hi, start):
         return traceback_ref(dec_lo, dec_hi, start)
     dec_lo, dec_hi, start = (t.contiguous() for t in (dec_lo, dec_hi, start))
@@ -258,23 +199,90 @@ def traceback_sweep(dec_lo: torch.Tensor, dec_hi: torch.Tensor,
     bits = torch.empty((n_steps, B), dtype=torch.uint8, device=dev)
     if B == 0 or n_steps == 0:
         return bits
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = _lib().gr80211_traceback_sweep(
-            dec_lo.data_ptr(), dec_hi.data_ptr(), start.data_ptr(),
-            bits.data_ptr(), n_steps, B, stream)
-    if rc != 0:
-        raise RuntimeError(f"traceback kernel launch failed: cudaError {rc}")
+    launch("gr80211_traceback_sweep", dev, dec_lo.data_ptr(),
+           dec_hi.data_ptr(), start.data_ptr(), bits.data_ptr(), n_steps, B)
     traceback_sweep.launches += 1
     return bits
 
 
-traceback_sweep.launches = 0
+# ---------------------------------------------------------------------------
+# K4 / K5: packed decision planes (4 steps per byte; not on the decode path)
+# ---------------------------------------------------------------------------
+
+def pack_planes(dec: torch.Tensor) -> torch.Tensor:
+    """(T, 32, B) 0/1 planes -> (T/4, 32, B) uint8, bit i of plane q =
+    step 4q+i (the reference's int8 values 0..15)."""
+    n_steps, _, B = dec.shape
+    w = torch.tensor([1, 2, 4, 8], dtype=torch.uint8, device=dec.device)
+    return (dec.reshape(n_steps // 4, 4, 32, B) * w[None, :, None, None]
+            ).sum(dim=1, dtype=torch.uint8)
 
 
-def reset_launch_counts():
-    acs_sweep.launches = 0
-    traceback_sweep.launches = 0
+def unpack_planes(packed: torch.Tensor) -> torch.Tensor:
+    """(T/4, 32, B) packed planes -> (T, 32, B) uint8 0/1."""
+    n_q, _, B = packed.shape
+    sh = torch.arange(4, dtype=torch.uint8, device=packed.device)
+    bits = (packed[:, None] >> sh[None, :, None, None]) & 1
+    return bits.reshape(4 * n_q, 32, B)
+
+
+def acs_sweep_packed_ref(llr0: torch.Tensor, llr1: torch.Tensor,
+                         pm0: torch.Tensor):
+    """Plain twin of K4: K1's twin, then the packing."""
+    dec_lo, dec_hi, pm = acs_sweep_ref(llr0, llr1, pm0)
+    return pack_planes(dec_lo), pack_planes(dec_hi), pm
+
+
+@counted
+def acs_sweep_packed(llr0: torch.Tensor, llr1: torch.Tensor,
+                     pm0: torch.Tensor | None = None):
+    """Forward ACS with packed decision planes (K4).
+
+    As :func:`acs_sweep`, but returns (dec_lo, dec_hi) as (T/4, 32, B)
+    uint8, bit i = step 4q+i's decision; the final metrics equal K1's."""
+    n_steps, B, pm0 = _acs_args("acs_sweep_packed", llr0, llr1, pm0)
+    if not _on_cuda(llr0, llr1, pm0):
+        return acs_sweep_packed_ref(llr0, llr1, pm0)
+    llr0, llr1, pm0 = (t.contiguous() for t in (llr0, llr1, pm0))
+    dev = llr0.device
+    dec_lo = torch.empty((n_steps // 4, 32, B), dtype=torch.uint8, device=dev)
+    dec_hi = torch.empty_like(dec_lo)
+    pm = torch.empty((64, B), dtype=torch.float32, device=dev)
+    if B == 0 or n_steps == 0:
+        return dec_lo, dec_hi, pm0.clone()
+    launch("gr80211_acs_sweep_packed", dev, llr0.data_ptr(), llr1.data_ptr(),
+           pm0.data_ptr(), dec_lo.data_ptr(), dec_hi.data_ptr(),
+           pm.data_ptr(), n_steps, B)
+    acs_sweep_packed.launches += 1
+    return dec_lo, dec_hi, pm
+
+
+def traceback_packed_ref(dec_lo: torch.Tensor, dec_hi: torch.Tensor,
+                         start: torch.Tensor) -> torch.Tensor:
+    """Plain twin of K5: unpack, then K2's twin."""
+    return traceback_ref(unpack_planes(dec_lo), unpack_planes(dec_hi), start)
+
+
+@counted
+def traceback_sweep_packed(dec_lo: torch.Tensor, dec_hi: torch.Tensor,
+                           start: torch.Tensor | None = None) -> torch.Tensor:
+    """(T/4, 32, B) packed planes -> (T, B) uint8 bits (K5); the
+    reference returns the same values as float32."""
+    start = _traceback_args("traceback_sweep_packed", dec_lo, dec_hi, start)
+    n_q, _, B = dec_lo.shape
+    n_steps = 4 * n_q
+    _require(n_steps % T_CHUNK == 0, "traceback_sweep_packed shapes")
+    if not _on_cuda(dec_lo, dec_hi, start):
+        return traceback_packed_ref(dec_lo, dec_hi, start)
+    dec_lo, dec_hi, start = (t.contiguous() for t in (dec_lo, dec_hi, start))
+    dev = dec_lo.device
+    bits = torch.empty((n_steps, B), dtype=torch.uint8, device=dev)
+    if B == 0 or n_steps == 0:
+        return bits
+    launch("gr80211_traceback_sweep_packed", dev, dec_lo.data_ptr(),
+           dec_hi.data_ptr(), start.data_ptr(), bits.data_ptr(), n_steps, B)
+    traceback_sweep_packed.launches += 1
+    return bits
 
 
 def argmax_start(pm: torch.Tensor) -> torch.Tensor:

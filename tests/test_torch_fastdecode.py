@@ -1,6 +1,7 @@
 """Syndrome-gated adaptive decoder: the port vs the JAX package, bit-exact
-on every tier (fast, row tile, windowed, full) and on the intermediate
-candidate, syndrome and dirty-window flags."""
+on every tier (fast, row tile, windowed, full), with and without per-row
+``n_real`` masking, and on the intermediate candidate, syndrome and
+dirty-window flags."""
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -30,11 +31,15 @@ def _llr_batch(rng, cr, T, B, flips_per_row=None):
     return np.stack(llrs), data
 
 
-def _both(llr, cr, T, **kw):
+def _both(llr, cr, T, n_real=None, **kw):
     """(JAX bits, port bits, port tier record) for the same LLRs."""
-    ref = np.asarray(JFD.adaptive_decode(jnp.asarray(llr), cr, T, **kw))
+    ref = np.asarray(JFD.adaptive_decode(
+        jnp.asarray(llr), cr, T,
+        n_real=None if n_real is None else jnp.asarray(n_real), **kw))
     rec = []
-    got = PFD.adaptive_decode(torch.from_numpy(llr), cr, T, record=rec, **kw)
+    got = PFD.adaptive_decode(
+        torch.from_numpy(llr), cr, T, record=rec,
+        n_real=None if n_real is None else torch.from_numpy(n_real), **kw)
     assert got.dtype == torch.uint8
     return ref, got.numpy(), rec
 
@@ -113,3 +118,40 @@ def test_fast_then_row_tile(cr):
     llr[0, 40:43] = -llr[0, 40:43]
     ref, got, rec = _both(llr, cr, T, fallback=2)
     assert rec == ["tile2"] and np.array_equal(got, ref)
+
+
+@pytest.mark.parametrize("cr,flips,kw,tier", [
+    ("3/4", [0] * 6, {}, "fast"),
+    ("1/2", [0, 2, 0, 0, 0, 0], dict(fallback=2), "tile2"),
+    ("2/3", [1] * 32, dict(fallback=16, win_tiers=(128,)), "win128"),
+])
+def test_n_real_masking_matches(cr, flips, kw, tier):
+    """Canonicalized-bucket rows: each row is a real codeword of n_real
+    steps followed by garbage up to the bucket's trellis length.  The
+    mask keeps the garbage out of the syndrome (so clean rows stay on
+    the fast path), the real bits come out exact, and every output bit
+    equals the reference's."""
+    rng = np.random.default_rng(13)
+    T, B = 1200, len(flips)
+    n_real = rng.integers(900, T + 1, B).astype(np.int32)
+    n_real[0] = T
+    llr, data = _llr_batch(rng, cr, T, B, flips_per_row=flips)
+    for b in range(B):
+        keep_from = len(PFD._keep_mask(cr, 2 * int(n_real[b])).nonzero()[0])
+        llr[b, keep_from:] = rng.normal(size=llr.shape[1] - keep_from) * 4
+    jd, js = JFD.inverse_and_syndrome(jnp.asarray(llr), cr, T,
+                                      jnp.asarray(n_real))
+    pd, ps = PFD.inverse_and_syndrome(torch.from_numpy(llr), cr, T,
+                                      torch.from_numpy(n_real))
+    assert np.array_equal(np.asarray(jd), pd.numpy())
+    assert np.array_equal(np.asarray(js), ps.numpy())
+    jm = JFD._mism_recompute(jnp.asarray(llr), jd, cr, T,
+                             jnp.asarray(n_real))
+    pm = PFD._mism_recompute(torch.from_numpy(llr), pd, cr, T,
+                             torch.from_numpy(n_real))
+    assert np.array_equal(np.asarray(jm), pm.numpy())
+    ref, got, rec = _both(llr, cr, T, n_real=n_real, **kw)
+    assert rec == [tier] and np.array_equal(got, ref)
+    for b in range(B):
+        if flips[b] == 0:
+            assert np.array_equal(got[b, : n_real[b]], data[b, : n_real[b]])

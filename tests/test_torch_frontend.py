@@ -5,7 +5,11 @@ bf16-staged window gathers and LTF timing offsets.  Float
 metrics, CFO and derotated windows agree to float32 rounding (sums taken
 in another order; transcendentals from another library): samples rel
 1e-4 of their scale, the detection metric 2e-3 absolute (see the test),
-CFO within 0.5 Hz.
+CFO within 0.5 Hz.  The moving sums are bit-equal: the port adds in the
+reference's order.  The derotation kernel's twin (K3) is held to the
+reference's Pallas kernel, run in interpret mode, to 2e-4 absolute on
+unit-variance samples (sin/cos of phases up to ~400 rad from two
+libraries).
 """
 import numpy as np
 import jax.numpy as jnp
@@ -147,6 +151,89 @@ def test_derotation_matches(stream):
     j = JFE.derotate_batch(from_host(s), jnp.asarray(st), jnp.asarray(cfo),
                            1200, low_prec=True)
     p = PFE.derotate_batch(from_numpy_cf(s, "cpu"), torch.from_numpy(st),
-                           torch.from_numpy(cfo), 1200)
+                           torch.from_numpy(cfo), 1200, low_prec=True)
     _close(np.asarray(j.re), p.re.numpy(), 1e-4)
     _close(np.asarray(j.im), p.im.numpy(), 1e-4)
+
+
+def test_movsum_is_bit_equal():
+    """Float moving sums in the reference's summation order (blocks of
+    16), 1-D blocked and 2-D."""
+    rng = np.random.default_rng(2)
+    for shape, w in (((4, 400), 64), ((3, 304), 64), ((70000,), 3),
+                     ((7, 520), 4)):
+        x = rng.normal(size=shape).astype(np.float32)
+        assert np.array_equal(np.asarray(JFE._movsum(jnp.asarray(x), w)),
+                              PFE._movsum(torch.from_numpy(x), w).numpy())
+
+
+def test_float32_gather_and_derotation_match(stream):
+    """The SIG/NDP path: float32 windows (zeros past the end) and the
+    default float32 derotate_batch.  The reference's blocked gather
+    returns NaN, not zeros, more than 64 samples past the end (an
+    out-of-range ``jnp.take``), so only in-stream windows are compared."""
+    s, starts = stream
+    pcf = from_numpy_cf(s, "cpu")
+    st = np.concatenate([starts + 190, [len(s) - 100]]).astype(np.int32)
+    g = PFE.gather_windows(pcf, torch.from_numpy(st), 496)
+    assert g.re.dtype == torch.float32
+    assert np.array_equal(g.re.numpy()[:-1], np.stack(
+        [s.real[k: k + 496] for k in st[:-1]]).astype(np.float32))
+    assert np.array_equal(g.im.numpy()[-1, :100],
+                          s.imag[-100:].astype(np.float32))
+    assert not g.re.numpy()[-1, 100:].any()
+    st = st[:-1]
+    cfo = np.random.default_rng(4).normal(size=len(st)).astype(np.float32)
+    j = JFE.derotate_batch(from_host(s), jnp.asarray(st),
+                           jnp.asarray(cfo * 8e4), 496)
+    p = PFE.derotate_batch(pcf, torch.from_numpy(st),
+                           torch.from_numpy(cfo * 8e4), 496)
+    _close(np.asarray(j.re), p.re.numpy(), 1e-4)
+    _close(np.asarray(j.im), p.im.numpy(), 1e-4)
+
+
+@pytest.mark.parametrize("B,n", [(3, 331), (130, 1984), (8, 4500)])
+def test_derotate_twin_matches_pallas(B, n):
+    """K3's twin vs the reference's Pallas derotation (interpret mode) at
+    its own test's shapes and CFOs; the wrapper runs the twin on CPU
+    tensors without counting a launch."""
+    rng = np.random.default_rng(8)
+    x = rng.normal(size=(B, n)) + 1j * rng.normal(size=(B, n))
+    cfo = rng.normal(size=B).astype(np.float32) * 8e4
+    ref = JFE.derotate_pallas(JCF(jnp.asarray(x.real, jnp.float32),
+                                  jnp.asarray(x.imag, jnp.float32)),
+                              jnp.asarray(cfo), n)
+    PFE.derotate.launches = 0
+    got = PFE.derotate(from_numpy_cf(x, "cpu"), torch.from_numpy(cfo), n)
+    assert PFE.derotate.launches == 0
+    for a, b in ((ref.re, got.re), (ref.im, got.im)):
+        assert np.abs(np.asarray(a) - b.numpy()).max() < 2e-4
+    fac = PFE._derotate_factored(from_numpy_cf(x, "cpu"),
+                                 torch.from_numpy(cfo), n)
+    assert np.abs(fac.re.numpy() - got.re.numpy()).max() < 2e-4
+
+
+def test_derotate_wrapper_checks_inputs():
+    x = from_numpy_cf(np.ones((2, 10), complex), "cpu")
+    with pytest.raises(ValueError):
+        PFE.derotate(x, torch.zeros(3), 10)
+    with pytest.raises(ValueError):
+        PFE.derotate(x, torch.zeros(2, dtype=torch.float64), 10)
+
+
+@pytest.mark.gpu
+def test_derotate_kernel_matches_twin_on_card():
+    """K3 on the card vs its twin on the card (1e-5 of the sample scale:
+    the precise sincosf and torch's sin/cos round differently in the last
+    bits)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    rng = np.random.default_rng(5)
+    for B, n in ((3, 331), (300, 2500)):
+        x = rng.normal(size=(B, n)) + 1j * rng.normal(size=(B, n))
+        cfo = torch.from_numpy(rng.normal(size=B).astype(np.float32) * 8e4)
+        w = from_numpy_cf(x, "cuda")
+        got = PFE.derotate(w, cfo.cuda(), n)
+        ref = PFE.derotate_ref(w, cfo.cuda(), n)
+        for a, b in ((got.re, ref.re), (got.im, ref.im)):
+            assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())

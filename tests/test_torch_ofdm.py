@@ -168,12 +168,61 @@ def test_llr_demap_matches(nbpscs):
 
 
 def test_equalize_rejects_unported_branches():
-    cfg = PhyConfig(Fmt.VHT, 4, 2, 300, ampdu=True)
-    g = _pcf(np.ones((2, 1, cfg.nsym, 64), complex))
-    h = _pcf(np.ones((2, 1, 2, 64), complex))
+    """What the reference cannot equalize, the port rejects too: a legacy
+    (1-stream, 1-estimate) channel against 2 receive antennas has no
+    broadcast in the normal equations (the reference fails at trace
+    time)."""
+    cfg = PhyConfig(Fmt.L, 4, 1, 300)
+    g = _pcf(np.ones((2, 2, cfg.nsym, 64), complex))
+    h = _pcf(np.ones((2, 1, 1, 64), complex))
     p = _pcf(np.ones((2, 1, 4), complex))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(RuntimeError):
         POF.equalize_and_demap(g, h, p, cfg)
+
+
+@pytest.mark.parametrize("fmt,mcs,nss,nrx", [
+    (Fmt.VHT, 5, 2, 2), (Fmt.HT, 12, 2, 2), (Fmt.HT, 3, 1, 2),
+    (Fmt.VHT, 7, 1, 2)])
+def test_zf_equalize_matches(fmt, mcs, nss, nrx):
+    """ZF / MRC through the normal equations (nrx, nss <= 2), including
+    the HT 2-SS per-stream pilot expectation: LLRs within 1e-4 of their
+    scale (float32 sums in another order), deinterleaved order exact."""
+    rng = np.random.default_rng(mcs + 10 * nss)
+    cfg = PhyConfig(fmt, mcs, nss, 400, ampdu=fmt == Fmt.VHT)
+    B = 5
+    h = (rng.normal(size=(B, nrx, nss, 64))
+         + 1j * rng.normal(size=(B, nrx, nss, 64))) / np.sqrt(2)
+    x = (rng.normal(size=(B, nrx, cfg.nsym, 64))
+         + 1j * rng.normal(size=(B, nrx, cfg.nsym, 64)))
+    ph = (rng.normal(size=(B, nrx, 4)) + 1j * rng.normal(size=(B, nrx, 4)))
+    ref = np.asarray(JOF.equalize_and_demap(_jcf(x), _jcf(h), _jcf(ph), cfg,
+                                            nrx_axis=True))
+    got = POF.equalize_and_demap(_pcf(x), _pcf(h), _pcf(ph), cfg).numpy()
+    assert got.shape == ref.shape == (B, nss, cfg.nsym * 52 * cfg.nbpscs)
+    assert np.abs(ref - got).max() <= 1e-4 * np.abs(ref).max()
+    assert np.array_equal(
+        np.asarray(JOF.deinterleave_deparse(jnp.asarray(ref), cfg)),
+        POF.deinterleave_deparse(torch.from_numpy(ref), cfg).numpy())
+    xs = (rng.normal(size=(B, nrx, 80 * cfg.nltf))
+          + 1j * rng.normal(size=(B, nrx, 80 * cfg.nltf)))
+    hj, pj = JOF.nl_chanest(_jcf(xs), 0, cfg.nltf, nss, nrx_axis=True)
+    hp, pp = POF.nl_chanest(_pcf(xs), 0, cfg.nltf, nss)
+    _close(hj, hp, 1e-5)
+    _close(pj, pp, 1e-5)
+
+
+def test_int8_ingest_and_cstack():
+    """Block-AGC int8 staging equals the reference's from_host_i8 exactly;
+    cstack stacks (re, im) pairs."""
+    rng = np.random.default_rng(6)
+    x = (rng.normal(size=(2, 500)) + 1j * rng.normal(size=(2, 500))) * 0.3
+    j = JC.from_host_i8(x)
+    p = PC.from_numpy_cf_i8(x, "cpu")
+    assert p.re.dtype == torch.float32
+    assert np.array_equal(np.asarray(j.re), p.re.numpy())
+    assert np.array_equal(np.asarray(j.im), p.im.numpy())
+    st = PC.cstack([p[0], p[1]], dim=1)
+    assert st.shape == (500, 2) and torch.equal(st.re[:, 1], p.re[1])
 
 
 def test_decode_tail_matches():

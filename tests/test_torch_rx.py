@@ -161,9 +161,9 @@ def test_chain_ok_matches_on_bench_stream_18db():
 
 def test_chain_rejects_unported_configs():
     cfg, ml, s = _stream(Fmt.VHT, 7, 32.0, num=1)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):
         PRX.rx_chain_count(cfg, from_numpy_cf(np.stack([s[0], s[0]]), "cpu"),
-                           mpdu_len=ml, max_pkts=8)
+                           nrx=3, mpdu_len=ml, max_pkts=8)
     with pytest.raises(ValueError):
         PRX.rx_chain_count(cfg, from_numpy_cf(s, "cpu"), mpdu_len=ml,
                            max_pkts=8, chunk=3)

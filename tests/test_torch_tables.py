@@ -19,6 +19,7 @@ from gr_ieee80211_tpu.ops import viterbi_pallas as JVP
 from gr_ieee80211_tpu.spec.params import Fmt
 from gr_ieee80211_tpu_torch.ops import cplx as PC
 from gr_ieee80211_tpu_torch.ops import crc as PCRC
+from gr_ieee80211_tpu_torch.ops import cuda_lib
 from gr_ieee80211_tpu_torch.ops import fastdecode as PFD
 from gr_ieee80211_tpu_torch.ops import ofdm as POF
 from gr_ieee80211_tpu_torch.ops import viterbi as PV
@@ -112,7 +113,7 @@ def test_acs_branch_masks():
     p00, p10 = PVK._branch_masks_np()
     _same(a00, p00)
     _same(a10, p10)
-    src = PVK._SRC.read_text()
+    src = (cuda_lib.CSRC / "viterbi.cu").read_text()
     assert re.search(r"p >> 4\) \^ \(p >> 3\) \^ \(p >> 1\) \^ p", src)
     assert re.search(r"p >> 5\) \^ \(p >> 4\) \^ \(p >> 3\) \^ p", src)
 

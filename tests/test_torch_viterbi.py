@@ -1,5 +1,7 @@
-"""Viterbi ACS (K1) / traceback (K2) twins and decode host side vs the
-Pallas reference (interpret mode on the CPU): bit-exact.
+"""Viterbi ACS (K1) / traceback (K2) twins, their packed variants (K4 /
+K5) and decode host side vs the Pallas reference (interpret mode on the
+CPU), and the plain SIG-field decoder vs the reference's XLA one:
+bit-exact.
 
 The port's plain PyTorch twins stand in for the CUDA kernels on the CPU;
 the kernels themselves are held to the twins on the card (the ``gpu``
@@ -164,3 +166,112 @@ def test_kernels_match_twins_on_card():
         for s0 in (PVK.state0_start(300, dev), PVK.argmax_start(got[2])):
             assert torch.equal(PVK.traceback_sweep(got[0], got[1], s0),
                                PVK.traceback_ref(got[0], got[1], s0))
+
+
+def _sig_llrs(rng, B_, T_):
+    """Noisy SIG-like LLR pairs with ties: punctured-style zeros, exact
+    integer values and runs of equal magnitudes."""
+    x = (rng.normal(size=(B_, T_, 2)) * 2.0).astype(np.float32)
+    x[:, ::3, 1] = 0.0
+    x[: B_ // 4] = np.round(x[: B_ // 4])
+    x[B_ // 4: B_ // 2] = np.sign(x[B_ // 4: B_ // 2])
+    return x
+
+
+@pytest.mark.parametrize("T_", [24, 26, 48, 200])
+@pytest.mark.parametrize("from_zero", [True, False])
+def test_plain_viterbi_decode_matches_xla(T_, from_zero):
+    """The SIG decoder (CHUNK = 54 renormalization, strict cand1 > cand0,
+    traceback from state 0 or the argmax) == the reference's XLA one."""
+    rng = np.random.default_rng(T_)
+    x = _sig_llrs(rng, 64, T_)
+    ref = np.asarray(JV.viterbi_decode(jnp.asarray(x),
+                                       traceback_from_zero=from_zero))
+    got = PV.viterbi_decode(torch.from_numpy(x), from_zero)
+    assert got.dtype == torch.uint8 and np.array_equal(ref, got.numpy())
+
+
+def test_plain_viterbi_stacked_rows_equal_separate():
+    """Trellises padding to the same 54-step chunk decode as one stacked
+    batch bit-equal to separate calls (how the SIG core decodes L-SIG,
+    HT-SIG and VHT-SIG-A together)."""
+    rng = np.random.default_rng(9)
+    a, b = _sig_llrs(rng, 8, 24), _sig_llrs(rng, 8, 48)
+    sep = [PV.viterbi_decode(torch.from_numpy(v)).numpy() for v in (a, b)]
+    pad = np.concatenate([a, np.zeros((8, 24, 2), np.float32)], axis=1)
+    both = PV.viterbi_decode(torch.from_numpy(np.concatenate([pad, b])))
+    assert np.array_equal(both[:8, :24].numpy(), sep[0])
+    assert np.array_equal(both[8:].numpy(), sep[1])
+    assert np.array_equal(PV.decode_coded_llrs(
+        torch.from_numpy(b.reshape(8, -1)), "1/2", 48).numpy(), sep[1])
+
+
+@pytest.mark.parametrize("kind", ["pinned", "uniform"])
+def test_packed_twins_match_pallas(kind):
+    """K4/K5 twins vs the reference's packed Pallas kernels (interpret
+    mode, T = 256, B = 128): planes equal as values (the port's uint8 vs
+    the reference's int8 0..15), final metrics and bits exact, and equal
+    to the unpacked K1/K2 twins."""
+    rng = np.random.default_rng(11)
+    T_, B_ = 256, 128
+    l0, l1 = _planes(rng, T_, B_)
+    pm0 = _pm0(kind, B_)
+    jpm0 = None if pm0 is None else jnp.asarray(pm0)
+    jd = JVP.acs_sweep_packed(jnp.asarray(l0), jnp.asarray(l1), jpm0,
+                              interpret=True)
+    tl0, tl1 = torch.from_numpy(l0), torch.from_numpy(l1)
+    tpm0 = None if pm0 is None else torch.from_numpy(pm0)
+    pd = PVK.acs_sweep_packed(tl0, tl1, tpm0)
+    assert pd[0].dtype == torch.uint8 and pd[0].shape == (T_ // 4, 32, B_)
+    for a, b in zip(jd, pd):
+        assert np.array_equal(np.asarray(a).astype(np.float32),
+                              b.numpy().astype(np.float32))
+    dl, dh, pm = PVK.acs_sweep(tl0, tl1, tpm0)
+    assert torch.equal(PVK.pack_planes(dl), pd[0])
+    assert torch.equal(PVK.pack_planes(dh), pd[1]) and torch.equal(pm, pd[2])
+    best = np.asarray(jnp.argmax(jd[2], axis=0))
+    mask0 = jnp.asarray((np.arange(64)[:, None] == best[None])
+                        .astype(np.float32))
+    for jmask, start in ((None, None),
+                         (mask0, torch.from_numpy(best.astype(np.int32)))):
+        ref = np.asarray(JVP.traceback_sweep_packed(jd[0], jd[1], jmask,
+                                                    interpret=True))
+        got = PVK.traceback_sweep_packed(pd[0], pd[1], start)
+        assert got.dtype == torch.uint8
+        assert np.array_equal(ref, got.numpy().astype(np.float32))
+        assert torch.equal(got, PVK.traceback_sweep(dl, dh, start))
+
+
+def test_packed_wrappers_check_inputs():
+    PVK.reset_launch_counts()
+    x = torch.zeros((64, 4))
+    with pytest.raises(ValueError):
+        PVK.acs_sweep_packed(torch.zeros((60, 4)), torch.zeros((60, 4)))
+    dl, dh, _ = PVK.acs_sweep_packed(x, x)
+    with pytest.raises(ValueError):
+        PVK.traceback_sweep_packed(dl.to(torch.int8), dh)
+    assert not PVK.traceback_sweep_packed(dl, dh).any()
+    assert PVK.acs_sweep_packed.launches == 0
+    assert PVK.traceback_sweep_packed.launches == 0
+
+
+@pytest.mark.gpu
+def test_packed_kernels_match_twins_on_card():
+    """K4/K5 on the card == their twins and == K1/K2 on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    rng = np.random.default_rng(4)
+    dev = torch.device("cuda", 0)
+    l0, l1 = (torch.from_numpy(a).to(dev) for a in _planes(rng, 640, 300))
+    for pm0 in (PVK.state0_metrics(300, dev),
+                torch.zeros((64, 300), device=dev)):
+        got = PVK.acs_sweep_packed(l0, l1, pm0)
+        ref = PVK.acs_sweep_packed_ref(l0, l1, pm0)
+        for a, b in zip(got, ref):
+            assert torch.equal(a, b)
+        dl, dh, _ = PVK.acs_sweep(l0, l1, pm0)
+        for s0 in (PVK.state0_start(300, dev), PVK.argmax_start(got[2])):
+            bits = PVK.traceback_sweep_packed(got[0], got[1], s0)
+            assert torch.equal(bits, PVK.traceback_packed_ref(got[0], got[1],
+                                                              s0))
+            assert torch.equal(bits, PVK.traceback_sweep(dl, dh, s0))
