@@ -8,15 +8,20 @@ Phases (any failure exits non-zero before the final line):
 
 1. device: require a CUDA card; print ``nvidia-smi``'s name and power limit;
 2. build: compile every kernel source (csrc/*.cu, one nvcc each, in
-   parallel) into one library;
+   parallel) into one library, and beside them the earlier K1/K2 design
+   (tools_torch/earlier_viterbi.cu), which is only a timing baseline;
 3. kernels: the ACS (K1) and traceback (K2) kernels against their plain
-   PyTorch twins on the card at the chain's shape (T = 4480, B = 4096),
-   exact equality, with CUDA-event times of both; then the packed ACS
+   PyTorch twins on the card at the chain's shape (T = 4480, B = 4096)
+   and at one engine bucket's (T = 4480, B = 64), pinned and uniform
+   metrics, state-0 and argmax starts, exact equality, with CUDA-event
+   times of both and of the earlier design in turns; then the packed ACS
    (K4) and traceback (K5) against their twins and against K1/K2 (planes
    == the packing of K1's, metrics and bits equal), and the derotation
    (K3) against its twin at the bench's payload window (4096, 1984) and
    an MCS0 4095 B window (128, 100000), beside the factored-phasor form
-   the chain runs;
+   the chain runs.  Each kernel's bound (the larger of its bytes over
+   the card's memory rate and its operations over the float32 lane
+   rate) is computed from these inputs;
 4. chain: ``rx_chain_count`` on the 4096-packet VHT MCS7 500 B stream at
    32 dB (fast path; every packet detected, >= 99% pass FCS, sampled
    PSDUs equal the transmitted bytes) and at 18 dB (the Viterbi tiers
@@ -36,7 +41,8 @@ Phases (any failure exits non-zero before the final line):
    equal.  K1/K2 must launch in the engine runs.
 
 The line before the last is a JSON object describing each kernel; the
-last is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
+last is ``{"ok": true, "device": {...}}``.  Imports neither JAX nor the
+JAX package (checked at both ends of the run).
 """
 import json
 import subprocess
@@ -78,8 +84,8 @@ def cuda_ms(fn, reps: int) -> float:
 def bench_streams():
     """The bench's stream (bench.py): B copies of one VHT MCS7 500 B
     A-MPDU with 900 Hz CFO and a 240-sample gap, at 32 and 18 dB."""
-    from gr_ieee80211_tpu.gold import channel, mac, tx
-    from gr_ieee80211_tpu.spec.params import Fmt, PhyConfig
+    from gr_ieee80211_tpu_torch.gold import channel, mac, tx
+    from gr_ieee80211_tpu_torch.spec.params import Fmt, PhyConfig
     rng = np.random.default_rng(1)
     payload = bytes(rng.integers(0, 256, 500, dtype=np.uint8))
     mpdu = mac.qos_data_frame(payload, "f4:69:d5:80:0f:a0",
@@ -102,61 +108,117 @@ def bench_streams():
 
 
 T_KERNEL = 4480                         # the chain's padded trellis
+B_BUCKET = 64                           # one engine Viterbi bucket
+KERNEL_REPS = 10
+
+# The card's peaks for the bounds (NVIDIA's H100 SXM data sheet): device
+# memory 3.35 TB/s; 67 TFLOP/s float32 counts a fused multiply-add as two,
+# so the adds, compares, selects and integer operations counted here
+# (one lane-operation each) run at half of it.
+PEAK_BYTES_S = 3.35e12
+PEAK_LANE_OPS_S = 67e12 / 2
 
 
-def llr_planes(torch, rng, dev):
-    """(T_KERNEL, B) float32 LLR planes on ``dev``: random, with punctured
-    zeros (metric ties) and a zero-LLR tail past the chain's T = 4420."""
-    l0 = rng.normal(size=(T_KERNEL, B)).astype(np.float32) * 4.0
-    l1 = rng.normal(size=(T_KERNEL, B)).astype(np.float32) * 4.0
-    l1[1::3] = 0.0
-    l0[4420:] = 0.0
-    l1[4420:] = 0.0
-    return torch.from_numpy(l0).to(dev), torch.from_numpy(l1).to(dev)
+def bound(n_bytes: float, n_ops: float) -> dict:
+    """The least time the card could take: the larger of bytes over the
+    memory rate and operations over the float32 lane rate."""
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_S, n_ops / PEAK_LANE_OPS_S
+    return {"bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_bytes": n_bytes, "bound_ops": n_ops}
 
 
-def phase_kernels(torch, VK):
-    """K1/K2 vs their twins at the chain's shape; returns kernel records."""
-    dev = torch.device("cuda", 0)
-    l0, l1 = llr_planes(torch, np.random.default_rng(7), dev)
-    pinned = VK.state0_metrics(B, dev)
-    uniform = torch.zeros((64, B), dtype=torch.float32, device=dev)
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def llr_pairs(torch, rng, dev, n_pkts=B):
+    """(n_pkts, T_KERNEL, 2) float32 LLR pairs on ``dev``: random, with
+    punctured zeros (metric ties) and a zero-LLR tail past the chain's
+    T = 4420."""
+    x = rng.normal(size=(n_pkts, T_KERNEL, 2)).astype(np.float32) * 4.0
+    x[:, 1::3, 1] = 0.0
+    x[:, 4420:] = 0.0
+    return torch.from_numpy(x).to(dev)
+
+
+def hold_k1_k2(torch, VK, llr, what):
+    """K1 and K2 against their twins on ``llr`` for pinned and uniform
+    metrics, state-0 and argmax starts: exact equality."""
+    n = llr.shape[0]
+    dev = llr.device
+    uniform = torch.zeros((n, 64), dtype=torch.float32, device=dev)
     err_acs = err_tb = 0.0
-    for name, pm0 in (("pinned", pinned), ("uniform", uniform)):
-        got = VK.acs_sweep(l0, l1, pm0)
+    for name, pm0 in (("pinned", VK.state0_metrics(n, dev)),
+                      ("uniform", uniform)):
+        dec, pm = VK.acs_sweep(llr, pm0)
         torch.cuda.synchronize()
-        ref = VK.acs_sweep_ref(l0, l1, pm0)
-        check(torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]),
-              f"K1 decisions differ from the twin ({name} pm0)")
-        check(torch.equal(got[2], ref[2]),
-              f"K1 final metrics differ from the twin ({name} pm0)")
-        err_acs = max(err_acs, float((got[2] - ref[2]).abs().max()))
-        for sname, start in (("state 0", VK.state0_start(B, dev)),
-                             ("argmax", VK.argmax_start(got[2]))):
-            bits = VK.traceback_sweep(got[0], got[1], start)
+        dec_ref, pm_ref = VK.acs_sweep_ref(llr, pm0)
+        check(torch.equal(dec, dec_ref),
+              f"K1 decisions differ from the twin ({what}, {name} pm0)")
+        check(torch.equal(pm, pm_ref),
+              f"K1 final metrics differ from the twin ({what}, {name} pm0)")
+        err_acs = max(err_acs, float((pm - pm_ref).abs().max()))
+        del dec_ref, pm_ref
+        for sname, start in (("state 0", VK.state0_start(n, dev)),
+                             ("argmax", VK.argmax_start(pm))):
+            bits = VK.traceback_sweep(dec, start)
             torch.cuda.synchronize()
-            bref = VK.traceback_ref(got[0], got[1], start)
+            bref = VK.traceback_ref(dec, start)
             check(torch.equal(bits, bref),
-                  f"K2 bits differ from the twin ({name} pm0, {sname})")
+                  f"K2 bits differ from the twin ({what}, {name} pm0, "
+                  f"{sname})")
             err_tb = max(err_tb, float((bits.int() - bref.int()).abs().max()))
-        log(f"kernels: K1/K2 == twins at T={T_KERNEL} B={B} ({name} pm0)")
-    dl, dh, pm = VK.acs_sweep(l0, l1)
+        log(f"kernels: K1/K2 == twins at {what} ({name} pm0)")
+    return err_acs, err_tb
+
+
+def phase_kernels(torch, VK, VD, earlier):
+    """K1/K2 vs their twins at the chain's shape and at one engine bucket
+    shape, beside the earlier design; returns kernel records."""
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(7)
+    llr = llr_pairs(torch, rng, dev)
+    small = llr_pairs(torch, rng, dev, B_BUCKET)
+    err_acs, err_tb = hold_k1_k2(torch, VK, llr, f"T={T_KERNEL} B={B}")
+    e2 = hold_k1_k2(torch, VK, small, f"T={T_KERNEL} B={B_BUCKET}")
+    err_acs, err_tb = max(err_acs, e2[0]), max(err_tb, e2[1])
+
+    pinned = VK.state0_metrics(B, dev)
     start0 = VK.state0_start(B, dev)
-    ms_acs = cuda_ms(lambda: VK.acs_sweep(l0, l1), 10)
-    plain_acs = cuda_ms(lambda: VK.acs_sweep_ref(l0, l1, pinned), 1)
-    ms_tb = cuda_ms(lambda: VK.traceback_sweep(dl, dh, start0), 10)
-    plain_tb = cuda_ms(lambda: VK.traceback_ref(dl, dh, start0), 1)
-    log(f"kernels: acs_sweep {ms_acs:.3f} ms (twin {plain_acs:.1f} ms), "
-        f"traceback_sweep {ms_tb:.3f} ms (twin {plain_tb:.1f} ms)")
+    dec, pm = VK.acs_sweep(llr, pinned)
+    bits = VK.traceback_sweep(dec, start0)
+    both = VD.compare(earlier, llr, KERNEL_REPS)   # earlier, new, new, earlier
+    plain_acs = cuda_ms(lambda: VK.acs_sweep_ref(llr, pinned), 1)
+    plain_tb = cuda_ms(lambda: VK.traceback_ref(dec, start0), 1)
+    dec_s, _ = VK.acs_sweep(small)
+    small_acs = cuda_ms(lambda: VK.acs_sweep(small), KERNEL_REPS)
+    small_tb = cuda_ms(lambda: VK.traceback_sweep(dec_s), KERNEL_REPS)
+    ms_acs, ms_tb = both["acs_ms"], both["tb_ms"]
+    log(f"kernels: acs_sweep {ms_acs:.3f} ms (earlier design "
+        f"{both['acs_earlier_ms']:.3f} ms, twin {plain_acs:.1f} ms), "
+        f"traceback_sweep {ms_tb:.3f} ms (earlier design "
+        f"{both['tb_earlier_ms']:.3f} ms, twin {plain_tb:.1f} ms) at "
+        f"T={T_KERNEL} B={B}; at B={B_BUCKET}: {small_acs:.3f} ms and "
+        f"{small_tb:.3f} ms")
+    steps = B * T_KERNEL
     return [
         {"name": "acs_sweep", "route": "cuda",
          "source": "gr_ieee80211_tpu_torch/csrc/viterbi.cu",
          "replaces": "gr_ieee80211_tpu/ops/viterbi_pallas.py:312",
-         "max_abs_err": err_acs, "ms": ms_acs, "plain_ms": plain_acs},
+         "max_abs_err": err_acs, "ms": ms_acs, "plain_ms": plain_acs,
+         # 32 butterflies x (4 adds, 2 compares, 2 selects) a step
+         **bound(nbytes(llr, pinned, dec, pm), 256 * steps),
+         "library_ms": None, "earlier_ms": both["acs_earlier_ms"],
+         f"ms_at_B{B_BUCKET}": small_acs},
         {"name": "traceback_sweep", "route": "cuda",
          "source": "gr_ieee80211_tpu_torch/csrc/viterbi.cu",
          "replaces": "gr_ieee80211_tpu/ops/viterbi_pallas.py:394",
-         "max_abs_err": err_tb, "ms": ms_tb, "plain_ms": plain_tb},
+         "max_abs_err": err_tb, "ms": ms_tb, "plain_ms": plain_tb,
+         # select, shift, mask, shift-or a step
+         **bound(nbytes(dec, start0, bits), 4 * steps),
+         "library_ms": None, "earlier_ms": both["tb_earlier_ms"],
+         f"ms_at_B{B_BUCKET}": small_tb},
     ]
 
 
@@ -174,15 +236,17 @@ def phase_chain(torch, VK, CL, PRX, from_numpy_cf, bench):
                                   max_pkts=B, record=record)
 
     # the main path: both operating points, counters from zero
-    CL.reset_launch_counts()
     records = {SNR_HI: [], SNR_LO: []}
-    results = {snr: tuple(int(x) for x in run(snr, records[snr]))
-               for snr in (SNR_HI, SNR_LO)}
-    torch.cuda.synchronize()
-    launches = CL.launch_counts()
+    results, launches = {}, {}
     for snr in (SNR_HI, SNR_LO):
+        CL.reset_launch_counts()
+        results[snr] = tuple(int(x) for x in run(snr, records[snr]))
+        torch.cuda.synchronize()
+        counts = CL.launch_counts()
         log(f"chain {snr:g} dB: (n_ok, n_det) = {results[snr]}, "
-            f"path {records[snr]}")
+            f"path {records[snr]}, kernel launches {counts}")
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
     log(f"chain: kernel launches in the main-path run: {launches}")
 
     n_ok, n_det = results[SNR_HI]
@@ -215,7 +279,7 @@ def phase_chain(torch, VK, CL, PRX, from_numpy_cf, bench):
 
 def phase_reference(torch, PRX, from_numpy_cf, bench):
     """A small stream through the chain on the card and on the CPU."""
-    from gr_ieee80211_tpu.gold import channel
+    from gr_ieee80211_tpu_torch.gold import channel
     cfg, mpdu, _, wave, _ = bench
     rng = np.random.default_rng(3)
     stream = channel.frame_stream(wave, 1.0, CFO_HZ, num=12, gap=400)
@@ -242,27 +306,32 @@ def phase_kernels_extra(torch, VK, FE):
     """K4/K5 vs their twins and K1/K2, K3 vs its twin; returns records."""
     rng = np.random.default_rng(9)
     dev = torch.device("cuda", 0)
-    l0, l1 = llr_planes(torch, rng, dev)
-    pinned = VK.state0_metrics(B, dev)
+    llr = llr_pairs(torch, rng, dev)
+    l0 = llr[:, :, 0].T.contiguous()
+    l1 = llr[:, :, 1].T.contiguous()
+    pinned = VK.state0_metrics(B, dev).T.contiguous()
     uniform = torch.zeros((64, B), dtype=torch.float32, device=dev)
     err_acs = err_tb = 0.0
     for name, pm0 in (("pinned", pinned), ("uniform", uniform)):
-        dl, dh, pm = VK.acs_sweep(l0, l1, pm0)
+        dec, pm = VK.acs_sweep(llr, pm0.T.contiguous())
+        dl, dh = VK.planes_from_words(dec)
         pl, ph, ppm = VK.acs_sweep_packed(l0, l1, pm0)
         torch.cuda.synchronize()
         check(torch.equal(pl, VK.pack_planes(dl))
               and torch.equal(ph, VK.pack_planes(dh)),
               f"K4 planes differ from K1's packed ({name} pm0)")
-        check(torch.equal(ppm, pm), f"K4 metrics differ from K1's ({name})")
+        del dl, dh
+        check(torch.equal(ppm, pm.T), f"K4 metrics differ from K1's ({name})")
         ref = VK.acs_sweep_packed_ref(l0, l1, pm0)
         check(all(torch.equal(a, b) for a, b in zip((pl, ph, ppm), ref)),
               f"K4 differs from its twin ({name} pm0)")
         err_acs = max(err_acs, float((ppm - ref[2]).abs().max()))
+        del ref
         for sname, start in (("state 0", VK.state0_start(B, dev)),
                              ("argmax", VK.argmax_start(pm))):
             bits = VK.traceback_sweep_packed(pl, ph, start)
             torch.cuda.synchronize()
-            check(torch.equal(bits, VK.traceback_sweep(dl, dh, start)),
+            check(torch.equal(bits, VK.traceback_sweep(dec, start).T),
                   f"K5 bits differ from K2's ({name} pm0, {sname})")
             bref = VK.traceback_packed_ref(pl, ph, start)
             check(torch.equal(bits, bref),
@@ -270,18 +339,22 @@ def phase_kernels_extra(torch, VK, FE):
             err_tb = max(err_tb, float((bits.int() - bref.int()).abs().max()))
         log(f"kernels: K4/K5 == twins == K1/K2 at T={T_KERNEL} B={B} "
             f"({name} pm0)")
-    pl, ph, _ = VK.acs_sweep_packed(l0, l1)
+    pl, ph, ppm = VK.acs_sweep_packed(l0, l1)
     start0 = VK.state0_start(B, dev)
-    ms_acs = cuda_ms(lambda: VK.acs_sweep_packed(l0, l1), 10)
+    bits = VK.traceback_sweep_packed(pl, ph, start0)
+    ms_acs = cuda_ms(lambda: VK.acs_sweep_packed(l0, l1), KERNEL_REPS)
     plain_acs = cuda_ms(lambda: VK.acs_sweep_packed_ref(l0, l1, pinned), 1)
-    ms_tb = cuda_ms(lambda: VK.traceback_sweep_packed(pl, ph, start0), 10)
+    ms_tb = cuda_ms(lambda: VK.traceback_sweep_packed(pl, ph, start0),
+                    KERNEL_REPS)
     plain_tb = cuda_ms(lambda: VK.traceback_packed_ref(pl, ph, start0), 1)
+    bound_k4 = bound(nbytes(l0, l1, pinned, pl, ph, ppm), 256 * B * T_KERNEL)
+    bound_k5 = bound(nbytes(pl, ph, start0, bits), 4 * B * T_KERNEL)
     log(f"kernels: acs_sweep_packed {ms_acs:.3f} ms (twin {plain_acs:.1f} "
         f"ms), traceback_sweep_packed {ms_tb:.3f} ms (twin {plain_tb:.1f} ms)")
 
     # K3: tolerance 1e-5 of the sample scale (the precise sincosf and
     # torch's sin/cos may differ in the last bits; phases reach ~630 rad)
-    err_dr, times = 0.0, {}
+    err_dr, times, bounds = 0.0, {}, {}
     for Bd, n in ((4096, 1984), (128, 100_000)):
         x = torch.randn((Bd, n), device=dev), torch.randn((Bd, n), device=dev)
         wins = FE.CF(*x)
@@ -290,13 +363,16 @@ def phase_kernels_extra(torch, VK, FE):
         got = FE.derotate(wins, cfo, n)
         ref = FE.derotate_ref(wins, cfo, n)
         torch.cuda.synchronize()
+        # a sample: the phase product, sincosf (~30), a complex product (6)
+        bounds[(Bd, n)] = bound(nbytes(*x, cfo, got.re, got.im), 37 * Bd * n)
         err = max(float((got.re - ref.re).abs().max()),
                   float((got.im - ref.im).abs().max()))
         scale = float(torch.maximum(x[0].abs().max(), x[1].abs().max()))
         check(err <= 1e-5 * scale, f"K3 at ({Bd}, {n}): |err| {err:.3g} > "
               f"1e-5 x {scale:.3g}")
         err_dr = max(err_dr, err)
-        times[(Bd, n)] = (cuda_ms(lambda: FE.derotate(wins, cfo, n), 10),
+        times[(Bd, n)] = (cuda_ms(lambda: FE.derotate(wins, cfo, n),
+                                  KERNEL_REPS),
                           cuda_ms(lambda: FE.derotate_ref(wins, cfo, n), 10),
                           cuda_ms(lambda: FE._derotate_factored(wins, cfo, n),
                                   10))
@@ -310,17 +386,20 @@ def phase_kernels_extra(torch, VK, FE):
          "source": "gr_ieee80211_tpu_torch/csrc/derotate.cu",
          "replaces": "gr_ieee80211_tpu/ops/frontend.py:492",
          "max_abs_err": err_dr, "ms": t_chain[0], "plain_ms": t_chain[1],
+         **bounds[(4096, 1984)], "library_ms": None, "earlier_ms": None,
          "factored_ms": t_chain[2],
          "ms_at_128x100000": times[(128, 100_000)][0],
          "plain_ms_at_128x100000": times[(128, 100_000)][1]},
         {"name": "acs_sweep_packed", "route": "cuda",
          "source": "gr_ieee80211_tpu_torch/csrc/viterbi.cu",
          "replaces": "gr_ieee80211_tpu/ops/viterbi_pallas.py:208",
-         "max_abs_err": err_acs, "ms": ms_acs, "plain_ms": plain_acs},
+         "max_abs_err": err_acs, "ms": ms_acs, "plain_ms": plain_acs,
+         **bound_k4, "library_ms": None, "earlier_ms": None},
         {"name": "traceback_sweep_packed", "route": "cuda",
          "source": "gr_ieee80211_tpu_torch/csrc/viterbi.cu",
          "replaces": "gr_ieee80211_tpu/ops/viterbi_pallas.py:275",
-         "max_abs_err": err_tb, "ms": ms_tb, "plain_ms": plain_tb},
+         "max_abs_err": err_tb, "ms": ms_tb, "plain_ms": plain_tb,
+         **bound_k5, "library_ms": None, "earlier_ms": None},
     ]
 
 
@@ -335,8 +414,8 @@ N_BLOCKS = 16
 
 def make_packet(rng, fmt, mcs, nss=1, n_bytes=300, n_mpdus=1):
     """(waveform (nss, n) at unit rms, expected result fields)."""
-    from gr_ieee80211_tpu.gold import mac, tx
-    from gr_ieee80211_tpu.spec.params import Fmt, PhyConfig
+    from gr_ieee80211_tpu_torch.gold import mac, tx
+    from gr_ieee80211_tpu_torch.spec.params import Fmt, PhyConfig
     if n_bytes == 0:
         # a 2-stream VHT NDP (a 1-stream NDP's L-SIG length fails the
         # receiver's plausibility bound), seen through a fixed 1x2 channel
@@ -366,7 +445,7 @@ def make_packet(rng, fmt, mcs, nss=1, n_bytes=300, n_mpdus=1):
 def random_packet(rng):
     """One packet of the mixed daemon traffic: L MCS0-7, HT MCS0-7 or VHT
     MCS0-8, 100-1500 B, some 2-3 MPDU A-MPDUs, a few (2-stream) NDPs."""
-    from gr_ieee80211_tpu.spec.params import Fmt
+    from gr_ieee80211_tpu_torch.spec.params import Fmt
     u = rng.random()
     if u < 0.03:
         return make_packet(rng, Fmt.VHT, 0, n_bytes=0)
@@ -382,7 +461,7 @@ def daemon_stream(rng, snr_db=30.0):
     4-7 carry only VHT MCS7 400 B and blocks 12-15 only HT MCS5 300 B
     (homogeneous traffic arms the speculation); the rest is mixed.  Every
     packet starts inside a block's own span and ends inside its halo."""
-    from gr_ieee80211_tpu.spec.params import Fmt
+    from gr_ieee80211_tpu_torch.spec.params import Fmt
     homog = {4: make_packet(rng, Fmt.VHT, 7, n_bytes=400),
              12: make_packet(rng, Fmt.HT, 5, n_bytes=300)}
     x = np.zeros(N_BLOCKS * BLOCK + HALO, np.complex64)
@@ -456,21 +535,24 @@ def check_sent(results, sent, what):
 def phase_engine(torch, CL, PRX, bench, chain_ok):
     """The general engine at full size; returns per-kernel launch counts
     summed over its runs (counts zeroed before each, read after)."""
-    from gr_ieee80211_tpu.spec.params import Fmt
+    from gr_ieee80211_tpu_torch.spec.params import Fmt
     launches = {}
 
-    def counted(fn):
+    def counted(fn, what):
         CL.reset_launch_counts()
         out = fn()
         torch.cuda.synchronize()
-        for k, v in CL.launch_counts().items():
+        counts = CL.launch_counts()
+        log(f"engine {what}: kernel launches {counts}")
+        for k, v in counts.items():
             launches[k] = launches.get(k, 0) + v
         return out
 
     # (a) the bench's 32 dB stream
     cfg, mpdu, _, _, streams = bench
     tic = time.perf_counter()
-    res = counted(lambda: PRX.RxEngine(nrx=1).process(streams[SNR_HI]))
+    res = counted(lambda: PRX.RxEngine(nrx=1).process(streams[SNR_HI]),
+                  "(a)")
     secs = time.perf_counter() - tic
     n_ok = sum(r.ok for r in res)
     check(len(res) == B and all(r.fmt == Fmt.VHT and r.mcs == MCS
@@ -492,7 +574,8 @@ def phase_engine(torch, CL, PRX, bench, chain_ok):
     # is not timed; then bucket-only and speculative passes alternate
     for i, spec in enumerate((False, False, True, True, False)):
         eng = PRX.RxEngine(nrx=1, speculate=spec)
-        got, kinds, secs = counted(lambda: run_blocks(eng, stream))
+        got, kinds, secs = counted(lambda: run_blocks(eng, stream),
+                                   f"(b) pass {i} speculate={spec}")
         check_sent(got, sent, f"engine (b) speculate={spec}")
         if i == 0:
             log(f"engine (b) warm-up pass: {1e3 * sum(secs) / N_BLOCKS:.1f} "
@@ -509,7 +592,7 @@ def phase_engine(torch, CL, PRX, bench, chain_ok):
             check(n_spec >= 4, f"engine (b): only {n_spec} speculative blocks")
 
     # (c) 2 antennas: HT MCS8-15 and VHT 2 SS through a 2x2 channel
-    from gr_ieee80211_tpu.gold import channel
+    from gr_ieee80211_tpu_torch.gold import channel
     rng = np.random.default_rng(29)
     parts, sent2, pos = [], [], 400
     for i in range(24):
@@ -524,7 +607,7 @@ def phase_engine(torch, CL, PRX, bench, chain_ok):
         pos += 400 + wave.shape[-1]
     x2 = np.concatenate(parts + [np.zeros((2, 400), complex)], axis=1)
     x2 = channel.awgn(x2, 10 ** (-35 / 20), rng).astype(np.complex64)
-    res2 = counted(lambda: PRX.RxEngine(nrx=2).process(x2))
+    res2 = counted(lambda: PRX.RxEngine(nrx=2).process(x2), "(c)")
     check_sent(res2, sent2, "engine (c) 2x2")
     log(f"engine (c): {len(res2)}/24 HT MCS8-15 / VHT 2-SS packets decoded "
         "on 2 antennas")
@@ -539,8 +622,8 @@ def phase_engine_reference(torch, PRX):
     CPU (the kernels' twins): the same per-packet results.  LTF timing
     may move by <= 2 samples at a near-tie of the flat autocorrelation
     top (sums taken in another order), then the bytes must still agree."""
-    from gr_ieee80211_tpu.gold import channel
-    from gr_ieee80211_tpu.spec.params import Fmt
+    from gr_ieee80211_tpu_torch.gold import channel
+    from gr_ieee80211_tpu_torch.spec.params import Fmt
     rng = np.random.default_rng(31)
     specs = [(Fmt.L, 3, 1, 400, 1), (Fmt.HT, 5, 1, 700, 1),
              (Fmt.VHT, 4, 1, 500, 1), (Fmt.HT, 2, 1, 900, 3),
@@ -567,6 +650,13 @@ def phase_engine_reference(torch, PRX):
         f"({sum(r.ok for r in g)} ok)")
 
 
+def check_self_contained():
+    """Neither JAX nor the JAX package has been imported."""
+    bad = sorted(m for m in sys.modules
+                 if m.split(".")[0] in ("jax", "jaxlib", "gr_ieee80211_tpu"))
+    check(not bad, f"the port imported {bad[:5]}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -579,7 +669,8 @@ def main() -> int:
     from gr_ieee80211_tpu_torch.ops import frontend as FE
     from gr_ieee80211_tpu_torch.ops import viterbi_kernels as VK
     from gr_ieee80211_tpu_torch.ops.cplx import from_numpy_cf
-    check("jax" not in sys.modules, "the port imported jax")
+    from tools_torch import viterbi_designs as VD
+    check_self_contained()
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -588,19 +679,23 @@ def main() -> int:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
 
+    earlier_build = VD.start_build()     # beside the package's sources
     _, secs, build_log = CL.build()
-    log(f"build: {secs:.1f} s ({len(CL.sources())} sources)")
-    for line in build_log.splitlines():
+    earlier, earlier_log = VD.finish_build(earlier_build)
+    log(f"build: {secs:.1f} s ({len(CL.sources())} sources, and the earlier "
+        "K1/K2 design as a baseline)")
+    for line in (build_log + earlier_log).splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             log(f"  {line.strip()}")
 
-    kernels = phase_kernels(torch, VK) + phase_kernels_extra(torch, VK, FE)
+    kernels = (phase_kernels(torch, VK, VD, earlier)
+               + phase_kernels_extra(torch, VK, FE))
     bench = bench_streams()
     launches, chain_ok = phase_chain(torch, VK, CL, PRX, from_numpy_cf, bench)
     phase_reference(torch, PRX, from_numpy_cf, bench)
     engine_launches, _ = phase_engine(torch, CL, PRX, bench, chain_ok)
     phase_engine_reference(torch, PRX)
-    check("jax" not in sys.modules, "jax was imported")
+    check_self_contained()
 
     for k in kernels:
         k["on_path"] = k["name"] in ("acs_sweep", "traceback_sweep")

@@ -28,12 +28,12 @@ import functools
 import numpy as np
 import torch
 
-from gr_ieee80211_tpu.gold import bits as GB
-from gr_ieee80211_tpu.gold import mac as MAC
-from gr_ieee80211_tpu.gold import sig as S
-from gr_ieee80211_tpu.runtime.native import deagg_vht
-from gr_ieee80211_tpu.spec import tables as T
-from gr_ieee80211_tpu.spec.params import Fmt, PhyConfig
+from ..gold import bits as GB
+from ..gold import mac as MAC
+from ..gold import sig as S
+from ..runtime.native import deagg_vht
+from ..spec import tables as T
+from ..spec.params import Fmt, PhyConfig
 from ..ops import crc as CRC
 from ..ops import frontend as FE
 from ..ops import ofdm as OF

@@ -25,7 +25,7 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "--fmad=false", "-Xptxas", "-v",
               "-Xcompiler", "-fPIC")
@@ -34,8 +34,8 @@ NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "--fmad=false", "-Xptxas", "-v",
 #: cudaGetLastError() after its launch (0 = launched)
 _VP, _CI, _CF = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ENTRY_POINTS = {
-    "gr80211_acs_sweep": [_VP] * 6 + [_CI, _CI, _VP],
-    "gr80211_traceback_sweep": [_VP] * 4 + [_CI, _CI, _VP],
+    "gr80211_acs_sweep": [_VP] * 4 + [_CI, _CI, _VP],
+    "gr80211_traceback_sweep": [_VP] * 3 + [_CI, _CI, _VP],
     "gr80211_acs_sweep_packed": [_VP] * 6 + [_CI, _CI, _VP],
     "gr80211_traceback_sweep_packed": [_VP] * 4 + [_CI, _CI, _VP],
     "gr80211_derotate": [_VP] * 5 + [_CI, _CI, _CF, _VP],
@@ -46,7 +46,7 @@ def sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu"))
 
 
-def _nvcc() -> str:
+def nvcc() -> str:
     cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
     cand = os.path.join(cuda_home, "bin", "nvcc")
     path = cand if os.path.exists(cand) else shutil.which("nvcc")
@@ -65,17 +65,17 @@ def build() -> tuple[Path, float, str]:
     for s in srcs:
         h.update(s.name.encode() + b"\0" + s.read_bytes())
     tag = h.hexdigest()[:16]
-    out = _BUILD_DIR / f"libgr80211_kernels_{tag}.so"
+    out = BUILD_DIR / f"libgr80211_kernels_{tag}.so"
     if out.exists():
         return out, 0.0, ""
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc_bin = nvcc()
     t0 = time.perf_counter()
-    objs = [_BUILD_DIR / f"{s.stem}_{tag}.{os.getpid()}.o" for s in srcs]
-    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)],
-                              stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True)
-             for s, o in zip(srcs, objs)]
+    objs = [BUILD_DIR / f"{s.stem}_{tag}.{os.getpid()}.o" for s in srcs]
+    procs = [subprocess.Popen(
+        [nvcc_bin, *NVCC_FLAGS, "-c", "-o", str(o), str(s)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for s, o in zip(srcs, objs)]
     logs = [p.communicate()[0] for p in procs]
     failed = [(s.name, p.returncode, log)
               for s, p, log in zip(srcs, procs, logs) if p.returncode != 0]
@@ -83,7 +83,7 @@ def build() -> tuple[Path, float, str]:
         raise RuntimeError("nvcc failed:\n" + "\n".join(
             f"{name} ({rc}):\n{log}" for name, rc, log in failed))
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    link = subprocess.run([nvcc, *ARCH, "-shared", "-o", str(tmp),
+    link = subprocess.run([nvcc_bin, *ARCH, "-shared", "-o", str(tmp),
                            *map(str, objs)], capture_output=True, text=True)
     for o in objs:
         o.unlink(missing_ok=True)

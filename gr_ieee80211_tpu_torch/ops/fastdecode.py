@@ -25,7 +25,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from gr_ieee80211_tpu.spec import tables as T
+from ..spec import tables as T
 from . import viterbi as V
 from .frontend import nonzero_padded
 from .viterbi_kernels import decode_window_rows, viterbi_decode

@@ -13,9 +13,9 @@ import functools
 import numpy as np
 import torch
 
-from gr_ieee80211_tpu.gold.tx import data_pilots
-from gr_ieee80211_tpu.spec import tables as T
-from gr_ieee80211_tpu.spec.params import Fmt, PhyConfig
+from ..gold.tx import data_pilots
+from ..spec import tables as T
+from ..spec.params import Fmt, PhyConfig
 from .cplx import CF, csum, dft64
 
 

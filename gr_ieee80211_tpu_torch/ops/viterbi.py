@@ -17,7 +17,7 @@ import functools
 import numpy as np
 import torch
 
-from gr_ieee80211_tpu.spec import tables as T
+from ..spec import tables as T
 
 NEG = -1e9
 #: trellis steps per renormalization (the reference's scan chunk)

@@ -16,12 +16,18 @@ Semantics held bit for bit to the Pallas kernels:
   the metrics renormalize to their max after every 64 steps;
 * the branch metrics are ``bm = a00*l0 + a10*l1``, ``q = (l0+l1) - bm``
   and ties keep the even predecessor (strict ``cand_b > cand_a``);
-* decisions are (T, 32, B) planes (1 = odd predecessor won), the
-  traceback starts from a per-packet state (0, or the argmax of the final
-  metrics) and emits ``bit = state >= 32``.
+* the traceback starts from a per-packet state (0, or the argmax of the
+  final metrics) and emits ``bit = state >= 32``.
 
-The wrappers take (T, B) planes with the batch minor, like the reference;
-B needs no padding here.
+Layouts.  K1/K2 are packet-major, as the decode callers hold their data:
+(B, T, 2) float32 LLR pairs in, (B, 64) metrics, (B, T) uint8 bits out,
+and the decisions as two 32-bit words a step, ``dec`` (B, T, 2) int32
+(the bits of a uint32): bit j of ``dec[b, t, 0]`` is state pair j's
+low-half decision (new state j), bit j of ``dec[b, t, 1]`` its high-half
+decision (new state 32 + j); 1 = the odd predecessor won.
+:func:`planes_from_words` / :func:`words_from_planes` map the words to
+the reference's (T, 32, B) 0/1 planes.  K4/K5 keep the reference's
+batch-minor (T, B) planes.
 """
 from __future__ import annotations
 
@@ -56,9 +62,9 @@ def _branch_masks_np() -> tuple[np.ndarray, np.ndarray]:
 
 
 def state0_metrics(B: int, device) -> torch.Tensor:
-    """(64, B) initial path metrics pinned to state 0 (packet start)."""
-    pm = torch.full((64, B), NEG, dtype=torch.float32, device=device)
-    pm[0] = 0.0
+    """(B, 64) initial path metrics pinned to state 0 (packet start)."""
+    pm = torch.full((B, 64), NEG, dtype=torch.float32, device=device)
+    pm[:, 0] = 0.0
     return pm
 
 
@@ -69,21 +75,49 @@ def state0_start(B: int, device) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# decision words <-> the reference's decision planes
+# ---------------------------------------------------------------------------
+
+def _pack_words(take: torch.Tensor) -> torch.Tensor:
+    """(..., 32) 0/1 -> (...) int32 holding bit j = take[..., j]."""
+    sh = torch.arange(32, dtype=torch.int64, device=take.device)
+    v = (take.to(torch.int64) << sh).sum(dim=-1)
+    return torch.where(v >= 1 << 31, v - (1 << 32), v).to(torch.int32)
+
+
+def words_from_planes(dec_lo: torch.Tensor,
+                      dec_hi: torch.Tensor) -> torch.Tensor:
+    """(T, 32, B) 0/1 planes (the reference's layout) -> (B, T, 2) int32
+    decision words."""
+    return torch.stack([_pack_words(dec_lo.permute(2, 0, 1)),
+                        _pack_words(dec_hi.permute(2, 0, 1))], dim=-1)
+
+
+def planes_from_words(dec: torch.Tensor):
+    """(B, T, 2) int32 decision words -> (dec_lo, dec_hi) (T, 32, B) uint8
+    0/1 planes, the reference's layout."""
+    sh = torch.arange(32, dtype=torch.int32, device=dec.device)
+    bits = ((dec[..., None] >> sh) & 1).to(torch.uint8)     # (B, T, 2, 32)
+    return (bits[:, :, 0].permute(1, 2, 0).contiguous(),
+            bits[:, :, 1].permute(1, 2, 0).contiguous())
+
+
+# ---------------------------------------------------------------------------
 # K1: forward ACS
 # ---------------------------------------------------------------------------
 
-def acs_sweep_ref(llr0: torch.Tensor, llr1: torch.Tensor,
-                  pm0: torch.Tensor):
-    """Plain PyTorch twin of K1: a loop over T, same operation order and
-    renormalization cadence as the Pallas ``_make_acs_kernel``."""
+def _acs_steps(llr0: torch.Tensor, llr1: torch.Tensor, p: torch.Tensor):
+    """The ACS recursion on batch-minor operands, shared by the twins of
+    K1 and K4: llr0/llr1 (T, B), p (64, B) -> boolean decisions (T, 32, B)
+    x 2 and the final metrics.  Same operation order and renormalization
+    cadence as the Pallas ``_make_acs_kernel``."""
     n_steps, B = llr0.shape
     a00_np, a10_np = _branch_masks_np()
     a00 = torch.from_numpy(a00_np).to(llr0.device)
     a10 = torch.from_numpy(a10_np).to(llr0.device)
-    dec_lo = torch.empty((n_steps, 32, B), dtype=torch.uint8,
+    dec_lo = torch.empty((n_steps, 32, B), dtype=torch.bool,
                          device=llr0.device)
     dec_hi = torch.empty_like(dec_lo)
-    p = pm0.clone()
     for t in range(n_steps):
         l0 = llr0[t][None, :]
         l1 = llr1[t][None, :]
@@ -106,101 +140,96 @@ def acs_sweep_ref(llr0: torch.Tensor, llr1: torch.Tensor,
     return dec_lo, dec_hi, p
 
 
-def _acs_args(name: str, llr0: torch.Tensor, llr1: torch.Tensor,
-              pm0: torch.Tensor | None):
-    """Validate K1/K4 inputs; returns (T, B, pm0) with pm0 defaulted to
-    the state-0 pin."""
-    n_steps, B = llr0.shape
-    if pm0 is None:
-        pm0 = state0_metrics(B, llr0.device)
-    _require(n_steps % T_CHUNK == 0, f"T={n_steps} not a multiple of 64")
-    _require(llr1.shape == llr0.shape and pm0.shape == (64, B),
-             f"shapes {tuple(llr0.shape)} {tuple(llr1.shape)} "
-             f"{tuple(pm0.shape)}")
-    _require(all(t.dtype == torch.float32 for t in (llr0, llr1, pm0)),
-             f"{name} takes float32")
-    return n_steps, B, pm0
+def acs_sweep_ref(llr: torch.Tensor, pm0: torch.Tensor):
+    """Plain PyTorch twin of K1: (B, T, 2) LLR pairs and (B, 64) metrics
+    -> (B, T, 2) int32 decision words and the final (B, 64) metrics."""
+    dec_lo, dec_hi, p = _acs_steps(llr[:, :, 0].T, llr[:, :, 1].T, pm0.T)
+    return words_from_planes(dec_lo, dec_hi), p.T.contiguous()
 
 
-def _traceback_args(name: str, dec_lo: torch.Tensor, dec_hi: torch.Tensor,
-                    start: torch.Tensor | None) -> torch.Tensor:
-    """Validate K2/K5 inputs; returns start, defaulted to state 0."""
-    B = dec_lo.shape[2]
-    if start is None:
-        start = state0_start(B, dec_lo.device)
-    _require(dec_lo.ndim == 3 and dec_lo.shape[1] == 32
-             and dec_hi.shape == dec_lo.shape and start.shape == (B,),
-             f"{name} shapes")
-    _require(dec_lo.dtype == torch.uint8 and dec_hi.dtype == torch.uint8
-             and start.dtype == torch.int32,
-             f"{name} takes uint8 planes and an int32 start")
-    return start
+def _aligned(t: torch.Tensor, nbytes: int) -> torch.Tensor:
+    """Contiguous and aligned for the kernels' vector loads."""
+    t = t.contiguous()
+    return t if t.data_ptr() % nbytes == 0 else t.clone()
 
 
 @counted
-def acs_sweep(llr0: torch.Tensor, llr1: torch.Tensor,
-              pm0: torch.Tensor | None = None):
+def acs_sweep(llr: torch.Tensor, pm0: torch.Tensor | None = None):
     """Forward ACS over the whole trellis (K1).
 
-    llr0, llr1: (T, B) float32, T % 64 == 0; pm0: (64, B) float32 initial
-    metrics (default: pinned to state 0).  Returns (dec_lo, dec_hi)
-    (T, 32, B) uint8 (1 = odd predecessor won) and the final metrics
-    (64, B)."""
-    n_steps, B, pm0 = _acs_args("acs_sweep", llr0, llr1, pm0)
-    if not _on_cuda(llr0, llr1, pm0):
-        return acs_sweep_ref(llr0, llr1, pm0)
-    llr0, llr1, pm0 = (t.contiguous() for t in (llr0, llr1, pm0))
-    dev = llr0.device
-    dec_lo = torch.empty((n_steps, 32, B), dtype=torch.uint8, device=dev)
-    dec_hi = torch.empty_like(dec_lo)
-    pm = torch.empty((64, B), dtype=torch.float32, device=dev)
+    llr: (B, T, 2) float32 LLR pairs, T % 64 == 0; pm0: (B, 64) float32
+    initial metrics (default: pinned to state 0).  Returns the decision
+    words (B, T, 2) int32 (see the module docstring) and the final
+    metrics (B, 64)."""
+    _require(llr.ndim == 3 and llr.shape[2] == 2,
+             f"acs_sweep takes (B, T, 2) LLR pairs, got {tuple(llr.shape)}")
+    B, n_steps, _ = llr.shape
+    if pm0 is None:
+        pm0 = state0_metrics(B, llr.device)
+    _require(n_steps % T_CHUNK == 0, f"T={n_steps} not a multiple of 64")
+    _require(pm0.shape == (B, 64), f"pm0 shape {tuple(pm0.shape)}")
+    _require(llr.dtype == torch.float32 and pm0.dtype == torch.float32,
+             "acs_sweep takes float32")
+    if not _on_cuda(llr, pm0):
+        return acs_sweep_ref(llr, pm0)
+    dev = llr.device
     if B == 0 or n_steps == 0:
-        return dec_lo, dec_hi, pm0.clone()
-    launch("gr80211_acs_sweep", dev, llr0.data_ptr(), llr1.data_ptr(),
-           pm0.data_ptr(), dec_lo.data_ptr(), dec_hi.data_ptr(),
-           pm.data_ptr(), n_steps, B)
+        return (torch.empty((B, n_steps, 2), dtype=torch.int32, device=dev),
+                pm0.clone())
+    llr, pm0 = _aligned(llr, 8), pm0.contiguous()
+    dec = torch.empty((B, n_steps, 2), dtype=torch.int32, device=dev)
+    pm = torch.empty((B, 64), dtype=torch.float32, device=dev)
+    launch("gr80211_acs_sweep", dev, llr.data_ptr(), pm0.data_ptr(),
+           dec.data_ptr(), pm.data_ptr(), n_steps, B)
     acs_sweep.launches += 1
-    return dec_lo, dec_hi, pm
+    return dec, pm
 
 
 # ---------------------------------------------------------------------------
 # K2: traceback
 # ---------------------------------------------------------------------------
 
-def traceback_ref(dec_lo: torch.Tensor, dec_hi: torch.Tensor,
-                  start: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch twin of K2: walk the state index backwards."""
-    n_steps, _, B = dec_lo.shape
-    cols = torch.arange(B, device=dec_lo.device)
-    s = start.to(torch.int64)
-    bits = torch.empty((n_steps, B), dtype=torch.uint8, device=dec_lo.device)
+def traceback_ref(dec: torch.Tensor, start: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch twin of K2: walk the state index backwards over the
+    (B, T, 2) decision words -> (B, T) uint8 bits."""
+    B, n_steps, _ = dec.shape
+    s = start.to(torch.int32)
+    bits = torch.empty((B, n_steps), dtype=torch.uint8, device=dec.device)
     for t in range(n_steps - 1, -1, -1):
         hi = s >> 5
         j = s & 31
-        bits[t] = hi.to(torch.uint8)
-        d = torch.where(hi.bool(), dec_hi[t, j, cols], dec_lo[t, j, cols])
-        s = 2 * j + d.to(torch.int64)
+        bits[:, t] = hi.to(torch.uint8)
+        word = torch.where(hi.bool(), dec[:, t, 1], dec[:, t, 0])
+        s = 2 * j + ((word >> j) & 1)
     return bits
 
 
 @counted
-def traceback_sweep(dec_lo: torch.Tensor, dec_hi: torch.Tensor,
+def traceback_sweep(dec: torch.Tensor,
                     start: torch.Tensor | None = None) -> torch.Tensor:
-    """(T, 32, B) uint8 decision planes -> (T, B) uint8 bits (K2).
+    """(B, T, 2) int32 decision words -> (B, T) uint8 bits (K2).
 
     start: (B,) int32 survivor start state (default 0); the reference's
     one-hot ``mask0`` is ``start`` as a one-hot column."""
-    start = _traceback_args("traceback_sweep", dec_lo, dec_hi, start)
-    n_steps, _, B = dec_lo.shape
-    if not _on_cuda(dec_lo, dec_hi, start):
-        return traceback_ref(dec_lo, dec_hi, start)
-    dec_lo, dec_hi, start = (t.contiguous() for t in (dec_lo, dec_hi, start))
-    dev = dec_lo.device
-    bits = torch.empty((n_steps, B), dtype=torch.uint8, device=dev)
+    _require(dec.ndim == 3 and dec.shape[2] == 2
+             and dec.shape[1] % T_CHUNK == 0,
+             f"traceback_sweep takes (B, T, 2) words, T % 64 == 0, got "
+             f"{tuple(dec.shape)}")
+    B, n_steps, _ = dec.shape
+    if start is None:
+        start = state0_start(B, dec.device)
+    _require(start.shape == (B,), "traceback_sweep start shape")
+    _require(dec.dtype == torch.int32 and start.dtype == torch.int32,
+             "traceback_sweep takes int32 words and an int32 start")
+    if not _on_cuda(dec, start):
+        return traceback_ref(dec, start)
+    dev = dec.device
+    bits = torch.empty((B, n_steps), dtype=torch.uint8, device=dev)
     if B == 0 or n_steps == 0:
         return bits
-    launch("gr80211_traceback_sweep", dev, dec_lo.data_ptr(),
-           dec_hi.data_ptr(), start.data_ptr(), bits.data_ptr(), n_steps, B)
+    dec, start = _aligned(dec, 8), start.contiguous()
+    launch("gr80211_traceback_sweep", dev, dec.data_ptr(), start.data_ptr(),
+           bits.data_ptr(), n_steps, B)
     traceback_sweep.launches += 1
     return bits
 
@@ -228,9 +257,10 @@ def unpack_planes(packed: torch.Tensor) -> torch.Tensor:
 
 def acs_sweep_packed_ref(llr0: torch.Tensor, llr1: torch.Tensor,
                          pm0: torch.Tensor):
-    """Plain twin of K4: K1's twin, then the packing."""
-    dec_lo, dec_hi, pm = acs_sweep_ref(llr0, llr1, pm0)
-    return pack_planes(dec_lo), pack_planes(dec_hi), pm
+    """Plain twin of K4: K1's recursion, then the packing."""
+    dec_lo, dec_hi, pm = _acs_steps(llr0, llr1, pm0)
+    return (pack_planes(dec_lo.to(torch.uint8)),
+            pack_planes(dec_hi.to(torch.uint8)), pm)
 
 
 @counted
@@ -238,9 +268,19 @@ def acs_sweep_packed(llr0: torch.Tensor, llr1: torch.Tensor,
                      pm0: torch.Tensor | None = None):
     """Forward ACS with packed decision planes (K4).
 
-    As :func:`acs_sweep`, but returns (dec_lo, dec_hi) as (T/4, 32, B)
-    uint8, bit i = step 4q+i's decision; the final metrics equal K1's."""
-    n_steps, B, pm0 = _acs_args("acs_sweep_packed", llr0, llr1, pm0)
+    llr0, llr1: (T, B) float32 planes, T % 64 == 0; pm0: (64, B) initial
+    metrics (default: pinned to state 0).  Returns (dec_lo, dec_hi) as
+    (T/4, 32, B) uint8, bit i = step 4q+i's decision, and the final
+    metrics (64, B), equal to K1's transposed."""
+    n_steps, B = llr0.shape
+    if pm0 is None:
+        pm0 = state0_metrics(B, llr0.device).T.contiguous()
+    _require(n_steps % T_CHUNK == 0, f"T={n_steps} not a multiple of 64")
+    _require(llr1.shape == llr0.shape and pm0.shape == (64, B),
+             f"shapes {tuple(llr0.shape)} {tuple(llr1.shape)} "
+             f"{tuple(pm0.shape)}")
+    _require(all(t.dtype == torch.float32 for t in (llr0, llr1, pm0)),
+             "acs_sweep_packed takes float32")
     if not _on_cuda(llr0, llr1, pm0):
         return acs_sweep_packed_ref(llr0, llr1, pm0)
     llr0, llr1, pm0 = (t.contiguous() for t in (llr0, llr1, pm0))
@@ -259,8 +299,9 @@ def acs_sweep_packed(llr0: torch.Tensor, llr1: torch.Tensor,
 
 def traceback_packed_ref(dec_lo: torch.Tensor, dec_hi: torch.Tensor,
                          start: torch.Tensor) -> torch.Tensor:
-    """Plain twin of K5: unpack, then K2's twin."""
-    return traceback_ref(unpack_planes(dec_lo), unpack_planes(dec_hi), start)
+    """Plain twin of K5: unpack, then K2's twin; (T, B) bits."""
+    dec = words_from_planes(unpack_planes(dec_lo), unpack_planes(dec_hi))
+    return traceback_ref(dec, start).T.contiguous()
 
 
 @counted
@@ -268,10 +309,18 @@ def traceback_sweep_packed(dec_lo: torch.Tensor, dec_hi: torch.Tensor,
                            start: torch.Tensor | None = None) -> torch.Tensor:
     """(T/4, 32, B) packed planes -> (T, B) uint8 bits (K5); the
     reference returns the same values as float32."""
-    start = _traceback_args("traceback_sweep_packed", dec_lo, dec_hi, start)
+    _require(dec_lo.ndim == 3 and dec_lo.shape[1] == 32
+             and dec_hi.shape == dec_lo.shape
+             and 4 * dec_lo.shape[0] % T_CHUNK == 0,
+             "traceback_sweep_packed shapes")
     n_q, _, B = dec_lo.shape
     n_steps = 4 * n_q
-    _require(n_steps % T_CHUNK == 0, "traceback_sweep_packed shapes")
+    if start is None:
+        start = state0_start(B, dec_lo.device)
+    _require(start.shape == (B,), "traceback_sweep_packed start shape")
+    _require(dec_lo.dtype == torch.uint8 and dec_hi.dtype == torch.uint8
+             and start.dtype == torch.int32,
+             "traceback_sweep_packed takes uint8 planes and an int32 start")
     if not _on_cuda(dec_lo, dec_hi, start):
         return traceback_packed_ref(dec_lo, dec_hi, start)
     dec_lo, dec_hi, start = (t.contiguous() for t in (dec_lo, dec_hi, start))
@@ -286,9 +335,9 @@ def traceback_sweep_packed(dec_lo: torch.Tensor, dec_hi: torch.Tensor,
 
 
 def argmax_start(pm: torch.Tensor) -> torch.Tensor:
-    """(64, B) final metrics -> (B,) int32 ML end state (first max, as
+    """(B, 64) final metrics -> (B,) int32 ML end state (first max, as
     ``jnp.argmax``)."""
-    return torch.argmax(pm, dim=0).to(torch.int32)
+    return torch.argmax(pm, dim=1).to(torch.int32)
 
 
 # ---------------------------------------------------------------------------
@@ -340,11 +389,8 @@ def viterbi_decode(llr_pairs: torch.Tensor) -> torch.Tensor:
         return _viterbi_decode_segmented(llr_pairs)
     Tp = -(-n_steps // T_CHUNK) * T_CHUNK
     x = torch.nn.functional.pad(llr_pairs, (0, 0, 0, Tp - n_steps))
-    llr0 = x[:, :, 0].T.contiguous()
-    llr1 = x[:, :, 1].T.contiguous()
-    dec_lo, dec_hi, _ = acs_sweep(llr0, llr1)
-    bits = traceback_sweep(dec_lo, dec_hi)
-    return bits.T[:, :n_steps].contiguous()
+    dec, _ = acs_sweep(x)
+    return traceback_sweep(dec)[:, :n_steps].contiguous()
 
 
 def decode_window_rows(win: torch.Tensor, keep_from: int,
@@ -352,13 +398,11 @@ def decode_window_rows(win: torch.Tensor, keep_from: int,
     """(N, width, 2) LLR windows -> (N, keep) bits: ACS from uniform
     metrics, traceback from the argmax end state, keep steps
     [keep_from, keep_from + keep)."""
-    N = win.shape[0]
-    llr0 = win[:, :, 0].T.contiguous()
-    llr1 = win[:, :, 1].T.contiguous()
-    pm0 = torch.zeros((64, N), dtype=torch.float32, device=win.device)
-    dec_lo, dec_hi, pm_f = acs_sweep(llr0, llr1, pm0)
-    bits = traceback_sweep(dec_lo, dec_hi, argmax_start(pm_f))
-    return bits[keep_from: keep_from + keep].T
+    pm0 = torch.zeros((win.shape[0], 64), dtype=torch.float32,
+                      device=win.device)
+    dec, pm_f = acs_sweep(win, pm0)
+    bits = traceback_sweep(dec, argmax_start(pm_f))
+    return bits[:, keep_from: keep_from + keep]
 
 
 def _viterbi_decode_segmented(llr_pairs: torch.Tensor) -> torch.Tensor:

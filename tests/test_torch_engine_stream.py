@@ -9,6 +9,7 @@ from gr_ieee80211_tpu.gold import channel, mac, tx as gtx
 from gr_ieee80211_tpu.models import rx as JRX
 from gr_ieee80211_tpu.spec.params import Fmt, PhyConfig
 from gr_ieee80211_tpu_torch.models import rx as PRX
+from gr_ieee80211_tpu_torch.spec.params import from_reference
 from test_torch_engine import _mk, _wave, assert_same_results, both
 
 torch.set_num_threads(2)
@@ -39,7 +40,8 @@ def test_engine_speculative_hit_and_miss():
         got = peng.finish_process(handle)
         ref = jeng.finish_process(jeng.begin_process(blk))
         assert_same_results(ref, got)
-        assert jeng._spec_canon == peng._spec_canon
+        canon, n_trellis = jeng._spec_canon
+        assert (from_reference(canon), n_trellis) == peng._spec_canon
         assert sum(r.ok and r.mpdus[0] == mpdu for r in got) == 3
     assert kinds == ["front", "spec", "spec"]
 

@@ -22,6 +22,7 @@ from gr_ieee80211_tpu_torch.models import rx as PRX
 from gr_ieee80211_tpu_torch.ops import cplx as PC
 from gr_ieee80211_tpu_torch.ops import crc as PCRC
 from gr_ieee80211_tpu_torch.ops import ofdm as POF
+from gr_ieee80211_tpu_torch.spec.params import Fmt as PFmt, from_reference
 
 torch.set_num_threads(2)
 
@@ -101,7 +102,7 @@ def _windows(fmt, mcs, B=6, snr=25.0, seed=3):
     else:
         cfg = PhyConfig(fmt, mcs, 1, len(mpdu))
         wave = gtx.tx_waveform(cfg, mpdu)[0]
-    n = PRX._data_start(cfg) + 80 * cfg.nsym + 16
+    n = PRX._data_start(from_reference(cfg)) + 80 * cfg.nsym + 16
     wave = np.concatenate([wave, np.zeros(n + 200, complex)])
     rms = np.sqrt(np.mean(np.abs(wave[:cfg.n_samples]) ** 2))
     xs = np.stack([wave[189: 189 + n]] * B)
@@ -115,7 +116,7 @@ def test_demod_matches(fmt, mcs):
     the dd refinement, equalize + demap and deinterleave vs the JAX ops."""
     cfg, xs = _windows(fmt, mcs)
     jx, px = _jcf(xs), _pcf(xs)
-    ds = PRX._data_start(cfg)
+    ds = PRX._data_start(from_reference(cfg))
     _close(JOF.legacy_chanest(jx, 0), POF.legacy_chanest(px, 0), 1e-5)
     if fmt == Fmt.L:
         h0j, h0p = JOF.legacy_chanest(jx, 0), POF.legacy_chanest(px, 0)
@@ -130,7 +131,7 @@ def test_demod_matches(fmt, mcs):
         sigb = ds - 80 if fmt == Fmt.VHT else None
         hj, pj = JOF.refine_chanest_siso(jx[:, None], hj, pj, fmt=fmt,
                                          sigb_gi=sigb)
-        hp, pp = POF.refine_chanest_siso(px[:, None], hp, pp, fmt=fmt,
+        hp, pp = POF.refine_chanest_siso(px[:, None], hp, pp, fmt=PFmt(fmt),
                                          sigb_gi=sigb)
         _close(hj, hp, 1e-4)
         _close(pj, pp, 1e-4)
@@ -138,16 +139,17 @@ def test_demod_matches(fmt, mcs):
     gp = POF.fft_syms(POF.extract_sym_windows(px, ds, cfg.nsym))[:, None]
     _close(gj, gp, 1e-5)
     hj2, pj2 = JOF.refine_chanest_data(gj, hj, pj, cfg)
-    hp2, pp2 = POF.refine_chanest_data(gp, hp, pp, cfg)
+    hp2, pp2 = POF.refine_chanest_data(gp, hp, pp, from_reference(cfg))
     _close(hj2, hp2, 1e-4)
     _close(pj2, pp2, 1e-4)
     lj = np.array(JOF.equalize_and_demap(gj, hj2, pj2, cfg, nrx_axis=True))
-    lp = POF.equalize_and_demap(gp, hp2, pp2, cfg).numpy()
+    lp = POF.equalize_and_demap(gp, hp2, pp2,
+                                from_reference(cfg)).numpy()
     assert lj.shape == lp.shape
     assert np.abs(lj - lp).max() <= 1e-4 * np.abs(lj).max()
     assert np.array_equal(np.asarray(JOF.deinterleave_deparse(
         jnp.asarray(lj), cfg)), POF.deinterleave_deparse(
-        torch.from_numpy(lj), cfg).numpy())
+        torch.from_numpy(lj), from_reference(cfg)).numpy())
 
 
 def test_extract_windows_gather_branch():
@@ -177,7 +179,7 @@ def test_equalize_rejects_unported_branches():
     h = _pcf(np.ones((2, 1, 1, 64), complex))
     p = _pcf(np.ones((2, 1, 4), complex))
     with pytest.raises(RuntimeError):
-        POF.equalize_and_demap(g, h, p, cfg)
+        POF.equalize_and_demap(g, h, p, from_reference(cfg))
 
 
 @pytest.mark.parametrize("fmt,mcs,nss,nrx", [
@@ -197,12 +199,14 @@ def test_zf_equalize_matches(fmt, mcs, nss, nrx):
     ph = (rng.normal(size=(B, nrx, 4)) + 1j * rng.normal(size=(B, nrx, 4)))
     ref = np.asarray(JOF.equalize_and_demap(_jcf(x), _jcf(h), _jcf(ph), cfg,
                                             nrx_axis=True))
-    got = POF.equalize_and_demap(_pcf(x), _pcf(h), _pcf(ph), cfg).numpy()
+    got = POF.equalize_and_demap(_pcf(x), _pcf(h), _pcf(ph),
+                                 from_reference(cfg)).numpy()
     assert got.shape == ref.shape == (B, nss, cfg.nsym * 52 * cfg.nbpscs)
     assert np.abs(ref - got).max() <= 1e-4 * np.abs(ref).max()
     assert np.array_equal(
         np.asarray(JOF.deinterleave_deparse(jnp.asarray(ref), cfg)),
-        POF.deinterleave_deparse(torch.from_numpy(ref), cfg).numpy())
+        POF.deinterleave_deparse(torch.from_numpy(ref),
+                                 from_reference(cfg)).numpy())
     xs = (rng.normal(size=(B, nrx, 80 * cfg.nltf))
           + 1j * rng.normal(size=(B, nrx, 80 * cfg.nltf)))
     hj, pj = JOF.nl_chanest(_jcf(xs), 0, cfg.nltf, nss, nrx_axis=True)

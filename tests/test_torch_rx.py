@@ -13,6 +13,7 @@ from gr_ieee80211_tpu_torch.models import rx as PRX
 from gr_ieee80211_tpu_torch.ops import fastdecode as PFD
 from gr_ieee80211_tpu_torch.ops import viterbi_kernels as PVK
 from gr_ieee80211_tpu_torch.ops.cplx import from_numpy_cf
+from gr_ieee80211_tpu_torch.spec.params import from_reference
 
 torch.set_num_threads(2)
 
@@ -45,7 +46,8 @@ def _jax_count(cfg, ml, s, **kw):
 
 def _port_count(cfg, ml, s, **kw):
     return tuple(int(x) for x in PRX.rx_chain_count(
-        cfg, from_numpy_cf(s, "cpu"), mpdu_len=ml, max_pkts=8, **kw))
+        from_reference(cfg), from_numpy_cf(s, "cpu"), mpdu_len=ml,
+        max_pkts=8, **kw))
 
 
 @pytest.mark.parametrize("chunk", [None, 4])
@@ -66,7 +68,8 @@ def test_rx_chain_ok_matches(fmt, mcs, snr):
     ref = [np.asarray(x) for x in JRX.rx_chain_ok(
         cfg, from_host(s), nrx=1, mpdu_len=ml, max_pkts=8)]
     got = [x.numpy() for x in PRX.rx_chain_ok(
-        cfg, from_numpy_cf(s, "cpu"), mpdu_len=ml, max_pkts=8)]
+        from_reference(cfg), from_numpy_cf(s, "cpu"), mpdu_len=ml,
+        max_pkts=8)]
     for r, g in zip(ref, got):
         assert r.dtype == g.dtype and np.array_equal(r, g)
     assert got[2].sum() == 4 and got[0].sum() == 4
@@ -106,7 +109,8 @@ def test_chain_forced_through_viterbi(monkeypatch):
     assert calls["acs"] >= 1 and calls["tb"] >= 1
     assert int((syn_seen[0] > 0).sum()) == 8
     # the packets themselves (not only the unused padding rows) had errors
-    _, ltf_c, cfo, valid = PRX._detect_sync(cfg, from_numpy_cf(s, "cpu"), 8)
+    _, ltf_c, cfo, valid = PRX._detect_sync(
+        from_reference(cfg), from_numpy_cf(s, "cpu"), 8)
     assert int(valid.sum()) == 5
     assert int((syn_seen[0][valid] > 0).sum()) >= 3
 
@@ -152,7 +156,8 @@ def test_chain_ok_matches_on_bench_stream_18db():
         cfg, from_host(s), nrx=1, mpdu_len=ml, max_pkts=128)]
     rec = []
     got = [x.numpy() for x in PRX.rx_chain_ok(
-        cfg, from_numpy_cf(s, "cpu"), mpdu_len=ml, max_pkts=128, record=rec)]
+        from_reference(cfg), from_numpy_cf(s, "cpu"), mpdu_len=ml,
+        max_pkts=128, record=rec)]
     assert rec == ["dd", "full"]
     for r, g in zip(ref, got):
         assert r.dtype == g.dtype and np.array_equal(r, g)
@@ -161,6 +166,7 @@ def test_chain_ok_matches_on_bench_stream_18db():
 
 def test_chain_rejects_unported_configs():
     cfg, ml, s = _stream(Fmt.VHT, 7, 32.0, num=1)
+    cfg = from_reference(cfg)
     with pytest.raises(ValueError):
         PRX.rx_chain_count(cfg, from_numpy_cf(np.stack([s[0], s[0]]), "cpu"),
                            nrx=3, mpdu_len=ml, max_pkts=8)

@@ -17,8 +17,10 @@ from gr_ieee80211_tpu.models import rx as JRX
 from gr_ieee80211_tpu.ops.cplx import from_host
 from gr_ieee80211_tpu.spec import tables as T
 from gr_ieee80211_tpu.spec.params import Fmt, MuConfig, PhyConfig
+from gr_ieee80211_tpu_torch.gold import sig as PS
 from gr_ieee80211_tpu_torch.models import rx as PRX
 from gr_ieee80211_tpu_torch.ops.cplx import from_numpy_cf
+from gr_ieee80211_tpu_torch.spec.params import from_reference
 from test_torch_engine import _mk, _wave, both
 
 torch.set_num_threads(2)
@@ -70,7 +72,8 @@ def test_canonical_cfg_matches():
                     cfg = PhyConfig(fmt, mcs, nss, length, ampdu=ampdu)
                 except (ValueError, AssertionError):
                     continue
-                assert PRX.canonical_cfg(cfg) == JRX.canonical_cfg(cfg), cfg
+                assert PRX.canonical_cfg(from_reference(cfg)) == \
+                    from_reference(JRX.canonical_cfg(cfg)), cfg
                 n += 1
     assert n > 5000
 
@@ -124,7 +127,9 @@ def test_classify_matches(nrx):
         if not lsig.ok:
             continue
         ref = jeng._classify(lsig, hb, vb)
-        got = peng._classify(lsig, hb, vb)
+        got = peng._classify(PS.parse_lsig(lb), hb, vb)
+        if ref[0] is not None:          # the port's own config class
+            ref = (from_reference(ref[0]),) + tuple(ref[1:])
         assert got == ref, (ref, got)
         kinds.add("ndp" if got[1] is not None else
                   "none" if got[0] is None else got[0].fmt.name)

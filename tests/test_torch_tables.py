@@ -24,6 +24,7 @@ from gr_ieee80211_tpu_torch.ops import fastdecode as PFD
 from gr_ieee80211_tpu_torch.ops import ofdm as POF
 from gr_ieee80211_tpu_torch.ops import viterbi as PV
 from gr_ieee80211_tpu_torch.ops import viterbi_kernels as PVK
+from gr_ieee80211_tpu_torch.spec.params import Fmt as PFmt
 
 torch.set_num_threads(2)
 
@@ -78,7 +79,8 @@ def test_delay_projector():
 @pytest.mark.parametrize("fmt,nss,nsym", [(Fmt.L, 1, 26), (Fmt.HT, 1, 12),
                                           (Fmt.VHT, 1, 17), (Fmt.HT, 2, 9)])
 def test_pilot_matrix(fmt, nss, nsym):
-    _same(JOF._pilot_matrix(fmt, nss, nsym), POF._pilot_matrix(fmt, nss, nsym))
+    _same(JOF._pilot_matrix(fmt, nss, nsym),
+          POF._pilot_matrix(PFmt(fmt), nss, nsym))
 
 
 @pytest.mark.parametrize("fmt,nbpscs,nss,nsym",
@@ -87,7 +89,7 @@ def test_pilot_matrix(fmt, nss, nsym):
                           (Fmt.VHT, 8, 1, 3), (Fmt.HT, 4, 2, 3)])
 def test_deint_deparse_perm(fmt, nbpscs, nss, nsym):
     _same(JOF._deint_deparse_perm(fmt, nbpscs, nss, nsym),
-          POF._deint_deparse_perm(fmt, nbpscs, nss, nsym))
+          POF._deint_deparse_perm(PFmt(fmt), nbpscs, nss, nsym))
 
 
 def test_descramble_tables():

@@ -27,13 +27,15 @@ def _planes(rng, T_, B_):
     l0 = rng.normal(size=(T_, B_)).astype(np.float32) * 3.0
     l1 = rng.normal(size=(T_, B_)).astype(np.float32) * 3.0
     l1[1::3] = 0.0
-    l0[: 40] = 0.0
-    l0[-70:] = 0.0
-    l1[-70:] = 0.0
+    head, tail = (40, 70) if T_ > 128 else (8, 10)
+    l0[: head] = 0.0
+    l0[-tail:] = 0.0
+    l1[-tail:] = 0.0
     return l0, l1
 
 
 def _pm0(kind, B_):
+    """(64, B) initial metrics, the reference's layout (None = pinned)."""
     if kind == "pinned":
         return None
     if kind == "uniform":
@@ -41,45 +43,95 @@ def _pm0(kind, B_):
     return np.random.default_rng(2).normal(size=(64, B_)).astype(np.float32)
 
 
-@pytest.mark.parametrize("kind", ["pinned", "uniform", "random"])
-def test_acs_twin_matches_pallas(kind):
+def _pairs(l0, l1):
+    """(T, B) planes -> the port's packet-major (B, T, 2) LLR pairs."""
+    return torch.from_numpy(np.ascontiguousarray(np.stack([l0.T, l1.T], -1)))
+
+
+def _port_pm0(pm0):
+    return None if pm0 is None else torch.from_numpy(
+        np.ascontiguousarray(pm0.T))
+
+
+def _jax_planes(l0, l1, B_):
+    """The reference kernels want the batch on a 128 multiple: pad with
+    zero-LLR packets; callers drop the padding columns."""
+    pad = -B_ % 128
+    return (jnp.asarray(np.pad(l0, ((0, 0), (0, pad)))),
+            jnp.asarray(np.pad(l1, ((0, 0), (0, pad)))))
+
+
+def _jax_pm0(pm0, B_):
+    if pm0 is None:
+        return None
+    return jnp.asarray(np.pad(pm0, ((0, 0), (0, -B_ % 128))))
+
+
+@pytest.mark.parametrize("kind,T_,B_", [
+    ("pinned", 320, 128), ("uniform", 320, 128), ("random", 320, 128),
+    ("uniform", 128, 37), ("pinned", 128, 1), ("random", 64, 33)])
+def test_acs_twin_matches_pallas(kind, T_, B_):
+    """K1's twin (packet-major, decision words) == the Pallas kernel
+    (interpret mode), decisions through ``planes_from_words``; also B not
+    a multiple of 32, B = 1 and a single chunk T = 64."""
     rng = np.random.default_rng(1)
-    T_, B_ = 320, 128
     l0, l1 = _planes(rng, T_, B_)
     pm0 = _pm0(kind, B_)
-    jd = JVP.acs_sweep(jnp.asarray(l0), jnp.asarray(l1),
-                       None if pm0 is None else jnp.asarray(pm0),
+    jd = JVP.acs_sweep(*_jax_planes(l0, l1, B_), _jax_pm0(pm0, B_),
                        interpret=True)
-    pd = PVK.acs_sweep(torch.from_numpy(l0), torch.from_numpy(l1),
-                       None if pm0 is None else torch.from_numpy(pm0))
-    assert np.array_equal(np.asarray(jd[0]), pd[0].numpy())
-    assert np.array_equal(np.asarray(jd[1]), pd[1].numpy())
-    assert np.array_equal(np.asarray(jd[2]), pd[2].numpy())
-    assert pd[0].dtype == torch.uint8 and pd[2].dtype == torch.float32
+    dec, pm = PVK.acs_sweep(_pairs(l0, l1), _port_pm0(pm0))
+    assert dec.dtype == torch.int32 and dec.shape == (B_, T_, 2)
+    assert pm.dtype == torch.float32 and pm.shape == (B_, 64)
+    dec_lo, dec_hi = PVK.planes_from_words(dec)
+    assert dec_lo.dtype == torch.uint8
+    assert np.array_equal(np.asarray(jd[0])[:, :, :B_], dec_lo.numpy())
+    assert np.array_equal(np.asarray(jd[1])[:, :, :B_], dec_hi.numpy())
+    assert np.array_equal(np.asarray(jd[2])[:, :B_], pm.numpy().T)
+    assert torch.equal(PVK.words_from_planes(dec_lo, dec_hi), dec)
 
 
-@pytest.mark.parametrize("start", ["state0", "argmax"])
-def test_traceback_twin_matches_pallas(start):
+def test_words_planes_roundtrip():
+    """``words_from_planes(planes_from_words(x)) == x`` for any words,
+    sign bit included, and the other way round for any 0/1 planes."""
+    rng = np.random.default_rng(8)
+    x = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, (5, 64, 2),
+                                      dtype=np.int64).astype(np.int32))
+    x[0, 0] = torch.tensor([-1, -2 ** 31], dtype=torch.int32)
+    lo, hi = PVK.planes_from_words(x)
+    assert lo.shape == (64, 32, 5) and int(lo.max()) == 1
+    assert torch.equal(PVK.words_from_planes(lo, hi), x)
+    planes = torch.from_numpy(rng.integers(0, 2, (2, 64, 32, 3),
+                                           dtype=np.uint8))
+    back = PVK.planes_from_words(PVK.words_from_planes(planes[0], planes[1]))
+    assert torch.equal(back[0], planes[0]) and torch.equal(back[1], planes[1])
+
+
+@pytest.mark.parametrize("start,T_,B_", [
+    ("state0", 256, 128), ("argmax", 256, 128), ("argmax", 128, 37),
+    ("state0", 128, 1), ("argmax", 64, 33)])
+def test_traceback_twin_matches_pallas(start, T_, B_):
+    """K2's twin over the words of the Pallas kernel's planes == the
+    Pallas traceback (interpret mode)."""
     rng = np.random.default_rng(2)
-    T_, B_ = 256, 128
     l0, l1 = _planes(rng, T_, B_)
     pm0 = np.zeros((64, B_), np.float32)
-    dl, dh, pm = JVP.acs_sweep(jnp.asarray(l0), jnp.asarray(l1),
-                               jnp.asarray(pm0), interpret=True)
+    dl, dh, pm = JVP.acs_sweep(*_jax_planes(l0, l1, B_), _jax_pm0(pm0, B_),
+                               interpret=True)
     if start == "state0":
         mask0, s0 = None, None
     else:
         best = np.asarray(jnp.argmax(pm, axis=0))
         mask0 = jnp.asarray((np.arange(64)[:, None] == best[None])
                             .astype(np.float32))
-        s0 = PVK.argmax_start(torch.from_numpy(np.array(pm)))
-        assert np.array_equal(s0.numpy(), best.astype(np.int32))
+        s0 = PVK.argmax_start(torch.from_numpy(np.array(pm).T[:B_].copy()))
+        assert np.array_equal(s0.numpy(), best[:B_].astype(np.int32))
     ref = np.asarray(JVP.traceback_sweep(dl, dh, mask0, interpret=True))
-    got = PVK.traceback_sweep(torch.from_numpy(np.asarray(dl).astype(np.uint8)),
-                              torch.from_numpy(np.asarray(dh).astype(np.uint8)),
-                              s0)
-    assert got.dtype == torch.uint8
-    assert np.array_equal(ref.astype(np.uint8), got.numpy())
+    dec = PVK.words_from_planes(
+        torch.from_numpy(np.asarray(dl)[:, :, :B_].astype(np.uint8)),
+        torch.from_numpy(np.asarray(dh)[:, :, :B_].astype(np.uint8)))
+    got = PVK.traceback_sweep(dec, s0)
+    assert got.dtype == torch.uint8 and got.shape == (B_, T_)
+    assert np.array_equal(ref[:, :B_].astype(np.uint8), got.numpy().T)
 
 
 def _coded_llr(rng, B_, T_, sigma):
@@ -136,16 +188,22 @@ def test_wrappers_check_inputs_and_count_only_kernels():
     """Bad shapes/dtypes raise; CPU tensors run the twin without touching
     the launch counters (they count kernel launches only)."""
     PVK.reset_launch_counts()
-    x = torch.zeros((64, 4))
+    x = torch.zeros((4, 64, 2))
     with pytest.raises(ValueError):
-        PVK.acs_sweep(torch.zeros((60, 4)), torch.zeros((60, 4)))
+        PVK.acs_sweep(torch.zeros((4, 60, 2)))
     with pytest.raises(ValueError):
-        PVK.acs_sweep(x.double(), x.double())
-    dl, dh, pm = PVK.acs_sweep(x, x)
+        PVK.acs_sweep(torch.zeros((64, 4)))
     with pytest.raises(ValueError):
-        PVK.traceback_sweep(dl, dh, torch.zeros(4, dtype=torch.int64))
-    bits = PVK.traceback_sweep(dl, dh)
-    assert bits.shape == (64, 4) and not bits.any()
+        PVK.acs_sweep(x.double())
+    with pytest.raises(ValueError):
+        PVK.acs_sweep(x, torch.zeros((64, 4)))
+    dec, pm = PVK.acs_sweep(x)
+    with pytest.raises(ValueError):
+        PVK.traceback_sweep(dec, torch.zeros(4, dtype=torch.int64))
+    with pytest.raises(ValueError):
+        PVK.traceback_sweep(dec.to(torch.int64))
+    bits = PVK.traceback_sweep(dec)
+    assert bits.shape == (4, 64) and not bits.any()
     assert PVK.acs_sweep.launches == 0 and PVK.traceback_sweep.launches == 0
 
 
@@ -156,16 +214,17 @@ def test_kernels_match_twins_on_card():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     rng = np.random.default_rng(4)
     dev = torch.device("cuda", 0)
-    l0, l1 = (torch.from_numpy(a).to(dev) for a in _planes(rng, 640, 300))
-    for pm0 in (None, torch.zeros((64, 300), device=dev)):
-        got = PVK.acs_sweep(l0, l1, pm0)
-        ref = PVK.acs_sweep_ref(l0, l1, PVK.state0_metrics(300, dev)
-                                if pm0 is None else pm0)
-        for a, b in zip(got, ref):
-            assert torch.equal(a, b)
-        for s0 in (PVK.state0_start(300, dev), PVK.argmax_start(got[2])):
-            assert torch.equal(PVK.traceback_sweep(got[0], got[1], s0),
-                               PVK.traceback_ref(got[0], got[1], s0))
+    for T_, B_ in ((640, 300), (64, 1), (128, 37)):
+        llr = _pairs(*_planes(rng, T_, B_)).to(dev)
+        for pm0 in (None, torch.zeros((B_, 64), device=dev)):
+            got = PVK.acs_sweep(llr, pm0)
+            ref = PVK.acs_sweep_ref(llr, PVK.state0_metrics(B_, dev)
+                                    if pm0 is None else pm0)
+            for a, b in zip(got, ref):
+                assert torch.equal(a, b)
+            for s0 in (PVK.state0_start(B_, dev), PVK.argmax_start(got[1])):
+                assert torch.equal(PVK.traceback_sweep(got[0], s0),
+                                   PVK.traceback_ref(got[0], s0))
 
 
 def _sig_llrs(rng, B_, T_):
@@ -226,9 +285,10 @@ def test_packed_twins_match_pallas(kind):
     for a, b in zip(jd, pd):
         assert np.array_equal(np.asarray(a).astype(np.float32),
                               b.numpy().astype(np.float32))
-    dl, dh, pm = PVK.acs_sweep(tl0, tl1, tpm0)
+    dec, pm = PVK.acs_sweep(_pairs(l0, l1), _port_pm0(pm0))
+    dl, dh = PVK.planes_from_words(dec)
     assert torch.equal(PVK.pack_planes(dl), pd[0])
-    assert torch.equal(PVK.pack_planes(dh), pd[1]) and torch.equal(pm, pd[2])
+    assert torch.equal(PVK.pack_planes(dh), pd[1]) and torch.equal(pm.T, pd[2])
     best = np.asarray(jnp.argmax(jd[2], axis=0))
     mask0 = jnp.asarray((np.arange(64)[:, None] == best[None])
                         .astype(np.float32))
@@ -239,7 +299,7 @@ def test_packed_twins_match_pallas(kind):
         got = PVK.traceback_sweep_packed(pd[0], pd[1], start)
         assert got.dtype == torch.uint8
         assert np.array_equal(ref, got.numpy().astype(np.float32))
-        assert torch.equal(got, PVK.traceback_sweep(dl, dh, start))
+        assert torch.equal(got, PVK.traceback_sweep(dec, start).T)
 
 
 def test_packed_wrappers_check_inputs():
@@ -262,16 +322,18 @@ def test_packed_kernels_match_twins_on_card():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     rng = np.random.default_rng(4)
     dev = torch.device("cuda", 0)
-    l0, l1 = (torch.from_numpy(a).to(dev) for a in _planes(rng, 640, 300))
-    for pm0 in (PVK.state0_metrics(300, dev),
+    planes = _planes(rng, 640, 300)
+    l0, l1 = (torch.from_numpy(a).to(dev) for a in planes)
+    for pm0 in (PVK.state0_metrics(300, dev).T.contiguous(),
                 torch.zeros((64, 300), device=dev)):
         got = PVK.acs_sweep_packed(l0, l1, pm0)
         ref = PVK.acs_sweep_packed_ref(l0, l1, pm0)
         for a, b in zip(got, ref):
             assert torch.equal(a, b)
-        dl, dh, _ = PVK.acs_sweep(l0, l1, pm0)
-        for s0 in (PVK.state0_start(300, dev), PVK.argmax_start(got[2])):
+        dec, pm = PVK.acs_sweep(_pairs(*planes).to(dev), pm0.T.contiguous())
+        assert torch.equal(pm.T, got[2])
+        for s0 in (PVK.state0_start(300, dev), PVK.argmax_start(pm)):
             bits = PVK.traceback_sweep_packed(got[0], got[1], s0)
             assert torch.equal(bits, PVK.traceback_packed_ref(got[0], got[1],
                                                               s0))
-            assert torch.equal(bits, PVK.traceback_sweep(dl, dh, s0))
+            assert torch.equal(bits, PVK.traceback_sweep(dec, s0).T)
