@@ -8,18 +8,23 @@ Phases (any failure exits non-zero before the final line):
 
 1. device: require a CUDA card; print ``nvidia-smi``'s name and power limit;
 2. build: compile every kernel source (csrc/*.cu, one nvcc each, in
-   parallel) into one library, and beside them the earlier K1/K2 design
-   (tools_torch/earlier_viterbi.cu), which is only a timing baseline;
+   parallel) into one library, and beside them the earlier design of the
+   Viterbi kernels (tools_torch/earlier_viterbi.cu), which is only a
+   timing baseline; print each kernel's registers, shared memory and
+   spills as ``ptxas -v`` gave them (a spill in a package kernel fails);
 3. kernels: the ACS (K1) and traceback (K2) kernels against their plain
    PyTorch twins on the card at the chain's shape (T = 4480, B = 4096)
    and at one engine bucket's (T = 4480, B = 64), pinned and uniform
    metrics, state-0 and argmax starts, exact equality, with CUDA-event
    times of both and of the earlier design in turns; then the packed ACS
    (K4) and traceback (K5) against their twins and against K1/K2 (planes
-   == the packing of K1's, metrics and bits equal), and the derotation
-   (K3) against its twin at the bench's payload window (4096, 1984) and
-   an MCS0 4095 B window (128, 100000), beside the factored-phasor form
-   the chain runs.  Each kernel's bound (the larger of its bytes over
+   == the packing of K1's, metrics and bits equal) at the same two shapes
+   and at ragged batches of both block sizes ((128, 100) and (128, 1100):
+   warps past the batch inside a block; (64, 37) and (64, 1037): rows
+   that move byte by byte), timed like K1/K2; and the derotation (K3)
+   against its twin at the bench's payload window (4096, 1984) and an
+   MCS0 4095 B window (128, 100000), beside the factored-phasor form the
+   chain runs.  Each kernel's bound (the larger of its bytes over
    the card's memory rate and its operations over the float32 lane
    rate) is computed from these inputs;
 4. chain: ``rx_chain_count`` on the 4096-packet VHT MCS7 500 B stream at
@@ -302,15 +307,16 @@ def phase_reference(torch, PRX, from_numpy_cf, bench):
         f"ok {int(ok_g.sum())}/12, path {rec_g}")
 
 
-def phase_kernels_extra(torch, VK, FE):
-    """K4/K5 vs their twins and K1/K2, K3 vs its twin; returns records."""
-    rng = np.random.default_rng(9)
-    dev = torch.device("cuda", 0)
-    llr = llr_pairs(torch, rng, dev)
+def hold_k4_k5(torch, VK, llr, what):
+    """K4 and K5 on the batch-minor planes of ``llr`` against their twins
+    and against K1/K2 on the same LLRs, for pinned and uniform metrics,
+    state-0 and argmax starts: exact equality."""
+    n = llr.shape[0]
+    dev = llr.device
     l0 = llr[:, :, 0].T.contiguous()
     l1 = llr[:, :, 1].T.contiguous()
-    pinned = VK.state0_metrics(B, dev).T.contiguous()
-    uniform = torch.zeros((64, B), dtype=torch.float32, device=dev)
+    pinned = VK.state0_metrics(n, dev).T.contiguous()
+    uniform = torch.zeros((64, n), dtype=torch.float32, device=dev)
     err_acs = err_tb = 0.0
     for name, pm0 in (("pinned", pinned), ("uniform", uniform)):
         dec, pm = VK.acs_sweep(llr, pm0.T.contiguous())
@@ -319,38 +325,72 @@ def phase_kernels_extra(torch, VK, FE):
         torch.cuda.synchronize()
         check(torch.equal(pl, VK.pack_planes(dl))
               and torch.equal(ph, VK.pack_planes(dh)),
-              f"K4 planes differ from K1's packed ({name} pm0)")
+              f"K4 planes differ from K1's packed ({what}, {name} pm0)")
         del dl, dh
-        check(torch.equal(ppm, pm.T), f"K4 metrics differ from K1's ({name})")
+        check(torch.equal(ppm, pm.T),
+              f"K4 metrics differ from K1's ({what}, {name} pm0)")
         ref = VK.acs_sweep_packed_ref(l0, l1, pm0)
         check(all(torch.equal(a, b) for a, b in zip((pl, ph, ppm), ref)),
-              f"K4 differs from its twin ({name} pm0)")
+              f"K4 differs from its twin ({what}, {name} pm0)")
         err_acs = max(err_acs, float((ppm - ref[2]).abs().max()))
         del ref
-        for sname, start in (("state 0", VK.state0_start(B, dev)),
+        for sname, start in (("state 0", VK.state0_start(n, dev)),
                              ("argmax", VK.argmax_start(pm))):
             bits = VK.traceback_sweep_packed(pl, ph, start)
             torch.cuda.synchronize()
             check(torch.equal(bits, VK.traceback_sweep(dec, start).T),
-                  f"K5 bits differ from K2's ({name} pm0, {sname})")
+                  f"K5 bits differ from K2's ({what}, {name} pm0, {sname})")
             bref = VK.traceback_packed_ref(pl, ph, start)
             check(torch.equal(bits, bref),
-                  f"K5 bits differ from its twin ({name} pm0, {sname})")
+                  f"K5 bits differ from its twin ({what}, {name} pm0, "
+                  f"{sname})")
             err_tb = max(err_tb, float((bits.int() - bref.int()).abs().max()))
-        log(f"kernels: K4/K5 == twins == K1/K2 at T={T_KERNEL} B={B} "
-            f"({name} pm0)")
-    pl, ph, ppm = VK.acs_sweep_packed(l0, l1)
+        log(f"kernels: K4/K5 == twins == K1/K2 at {what} ({name} pm0)")
+    return err_acs, err_tb
+
+
+def phase_kernels_extra(torch, VK, VD, FE, earlier):
+    """K4/K5 vs their twins and K1/K2, beside the earlier design; K3 vs
+    its twin; returns records."""
+    rng = np.random.default_rng(9)
+    dev = torch.device("cuda", 0)
+    llr = llr_pairs(torch, rng, dev)
+    small = llr_pairs(torch, rng, dev, B_BUCKET)
+    err_acs, err_tb = hold_k4_k5(torch, VK, llr, f"T={T_KERNEL} B={B}")
+    # K4/K5 run blocks of 8 packets up to B = 1024 and of 32 beyond:
+    # ragged batches of both kinds, with rows moved as words (B % 4 == 0)
+    # and byte by byte
+    for x, what in ((small, f"T={T_KERNEL} B={B_BUCKET}"),
+                    (llr[:100, :128].contiguous(), "T=128 B=100"),
+                    (llr[:37, 4400:4464].contiguous(), "T=64 B=37"),
+                    (llr[:1100, :128].contiguous(), "T=128 B=1100"),
+                    (llr[:1037, 4400:4464].contiguous(), "T=64 B=1037")):
+        e2 = hold_k4_k5(torch, VK, x, what)
+        err_acs, err_tb = max(err_acs, e2[0]), max(err_tb, e2[1])
+
+    l0 = llr[:, :, 0].T.contiguous()
+    l1 = llr[:, :, 1].T.contiguous()
+    pinned = VK.state0_metrics(B, dev).T.contiguous()
     start0 = VK.state0_start(B, dev)
+    pl, ph, ppm = VK.acs_sweep_packed(l0, l1, pinned)
     bits = VK.traceback_sweep_packed(pl, ph, start0)
-    ms_acs = cuda_ms(lambda: VK.acs_sweep_packed(l0, l1), KERNEL_REPS)
+    both = VD.compare_packed(earlier, llr, KERNEL_REPS)   # in turns
+    ms_acs, ms_tb = both["acs_packed_ms"], both["tb_packed_ms"]
     plain_acs = cuda_ms(lambda: VK.acs_sweep_packed_ref(l0, l1, pinned), 1)
-    ms_tb = cuda_ms(lambda: VK.traceback_sweep_packed(pl, ph, start0),
-                    KERNEL_REPS)
     plain_tb = cuda_ms(lambda: VK.traceback_packed_ref(pl, ph, start0), 1)
+    s0 = small[:, :, 0].T.contiguous()
+    s1 = small[:, :, 1].T.contiguous()
+    sl, sh, _ = VK.acs_sweep_packed(s0, s1)
+    small_acs = cuda_ms(lambda: VK.acs_sweep_packed(s0, s1), KERNEL_REPS)
+    small_tb = cuda_ms(lambda: VK.traceback_sweep_packed(sl, sh), KERNEL_REPS)
     bound_k4 = bound(nbytes(l0, l1, pinned, pl, ph, ppm), 256 * B * T_KERNEL)
     bound_k5 = bound(nbytes(pl, ph, start0, bits), 4 * B * T_KERNEL)
-    log(f"kernels: acs_sweep_packed {ms_acs:.3f} ms (twin {plain_acs:.1f} "
-        f"ms), traceback_sweep_packed {ms_tb:.3f} ms (twin {plain_tb:.1f} ms)")
+    log(f"kernels: acs_sweep_packed {ms_acs:.3f} ms (earlier design "
+        f"{both['acs_packed_earlier_ms']:.3f} ms, twin {plain_acs:.1f} ms), "
+        f"traceback_sweep_packed {ms_tb:.3f} ms (earlier design "
+        f"{both['tb_packed_earlier_ms']:.3f} ms, twin {plain_tb:.1f} ms) at "
+        f"T={T_KERNEL} B={B}; at B={B_BUCKET}: {small_acs:.3f} ms and "
+        f"{small_tb:.3f} ms")
 
     # K3: tolerance 1e-5 of the sample scale (the precise sincosf and
     # torch's sin/cos may differ in the last bits; phases reach ~630 rad)
@@ -394,12 +434,16 @@ def phase_kernels_extra(torch, VK, FE):
          "source": "gr_ieee80211_tpu_torch/csrc/viterbi.cu",
          "replaces": "gr_ieee80211_tpu/ops/viterbi_pallas.py:208",
          "max_abs_err": err_acs, "ms": ms_acs, "plain_ms": plain_acs,
-         **bound_k4, "library_ms": None, "earlier_ms": None},
+         **bound_k4, "library_ms": None,
+         "earlier_ms": both["acs_packed_earlier_ms"],
+         f"ms_at_B{B_BUCKET}": small_acs},
         {"name": "traceback_sweep_packed", "route": "cuda",
          "source": "gr_ieee80211_tpu_torch/csrc/viterbi.cu",
          "replaces": "gr_ieee80211_tpu/ops/viterbi_pallas.py:275",
          "max_abs_err": err_tb, "ms": ms_tb, "plain_ms": plain_tb,
-         **bound_k5, "library_ms": None, "earlier_ms": None},
+         **bound_k5, "library_ms": None,
+         "earlier_ms": both["tb_packed_earlier_ms"],
+         f"ms_at_B{B_BUCKET}": small_tb},
     ]
 
 
@@ -650,6 +694,37 @@ def phase_engine_reference(torch, PRX):
         f"({sum(r.ok for r in g)} ok)")
 
 
+def ptxas_summary(build_log: str) -> dict:
+    """``nvcc -Xptxas -v`` output -> {kernel: {registers, smem_bytes,
+    spill_bytes}} (spill stores + loads)."""
+    import re
+    out, name, spills = {}, None, 0
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            # the mangled name holds <length><name> of the kernel function
+            # (a template's integer argument follows as ILi<value>E)
+            sym = m.group(1)
+            tail = re.search(r"_kernel(?:ILi(\d+)E)?E", sym)
+            end = tail.start() + len("_kernel") if tail else 0
+            name = next((sym[end - n: end] for n in range(40, 6, -1)
+                         if sym[: end - n].endswith(str(n))), sym)
+            if tail and tail.group(1):
+                name += f"<{tail.group(1)}>"
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spills = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?", line)
+        if m and name is not None:
+            out[name] = {"registers": int(m.group(1)),
+                         "smem_bytes": int(m.group(2) or 0),
+                         "spill_bytes": spills}
+            name, spills = None, 0
+    return out
+
+
 def check_self_contained():
     """Neither JAX nor the JAX package has been imported."""
     bad = sorted(m for m in sys.modules
@@ -683,13 +758,22 @@ def main() -> int:
     _, secs, build_log = CL.build()
     earlier, earlier_log = VD.finish_build(earlier_build)
     log(f"build: {secs:.1f} s ({len(CL.sources())} sources, and the earlier "
-        "K1/K2 design as a baseline)")
+        "Viterbi design as a baseline)")
     for line in (build_log + earlier_log).splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             log(f"  {line.strip()}")
+    ptxas = ptxas_summary(build_log)
+    log(json.dumps({"ptxas": ptxas,
+                    "ptxas_earlier": ptxas_summary(earlier_log)}))
+    check({k.split("<")[0] for k in ptxas} == {
+        "acs_kernel", "traceback_kernel", "derotate_kernel",
+        "acs_packed_kernel", "traceback_packed_kernel"},
+        f"ptxas did not name the five package kernels: {sorted(ptxas)}")
+    spilled = {k: v for k, v in ptxas.items() if v["spill_bytes"]}
+    check(not spilled, f"package kernels spill registers: {spilled}")
 
     kernels = (phase_kernels(torch, VK, VD, earlier)
-               + phase_kernels_extra(torch, VK, FE))
+               + phase_kernels_extra(torch, VK, VD, FE, earlier))
     bench = bench_streams()
     launches, chain_ok = phase_chain(torch, VK, CL, PRX, from_numpy_cf, bench)
     phase_reference(torch, PRX, from_numpy_cf, bench)

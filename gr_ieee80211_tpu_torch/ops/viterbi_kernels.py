@@ -26,8 +26,23 @@ and the decisions as two 32-bit words a step, ``dec`` (B, T, 2) int32
 low-half decision (new state j), bit j of ``dec[b, t, 1]`` its high-half
 decision (new state 32 + j); 1 = the odd predecessor won.
 :func:`planes_from_words` / :func:`words_from_planes` map the words to
-the reference's (T, 32, B) 0/1 planes.  K4/K5 keep the reference's
-batch-minor (T, B) planes.
+the reference's (T, 32, B) 0/1 planes.
+
+K4/K5 keep the reference's batch-minor layout, since only the tests hold
+them (to the Pallas planes): (T, B) LLR planes and (64, B) metrics in,
+(T/4, 32, B) uint8 decision planes (``acs_sweep_packed``, the TPU kernel
+``viterbi_pallas.acs_sweep_packed``), (T, B) bits out
+(``traceback_sweep_packed``, the TPU kernel
+``viterbi_pallas.traceback_sweep_packed``).  At (T, B) = (4480, 4096) K4
+is bound by its operations (4.7e9 lane-operations, ~0.14 ms on an H100;
+its 442 MB take ~0.13 ms) and K5 by its 312 MB (~0.09 ms).  Both kernels
+run one warp per packet in blocks of 32 neighbouring packets (8 for a
+batch of up to 1024, which would fill too few SMs otherwise) and do the
+transposing between the batch-minor planes and the warp's packet in
+shared memory, so every row of a plane moves as whole 32 B sectors and
+no load from device memory depends on the trellis state; any B is taken
+(rows move as 32-bit words when B % 4 == 0, else byte by byte).  The
+design notes are at the head of ``csrc/viterbi.cu``.
 """
 from __future__ import annotations
 

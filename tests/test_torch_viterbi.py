@@ -7,6 +7,9 @@ The port's plain PyTorch twins stand in for the CUDA kernels on the CPU;
 the kernels themselves are held to the twins on the card (the ``gpu``
 test here and ``chip_smoke.py``).
 """
+import importlib.util
+from pathlib import Path
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -302,6 +305,56 @@ def test_packed_twins_match_pallas(kind):
         assert torch.equal(got, PVK.traceback_sweep(dec, start).T)
 
 
+@pytest.mark.parametrize("kind,T_,B_", [
+    ("uniform", 128, 37), ("pinned", 64, 33), ("random", 64, 100),
+    ("pinned", 128, 1), ("uniform", 192, 130)])
+def test_packed_twins_match_pallas_shapes(kind, T_, B_):
+    """K4/K5 twins == the packed Pallas kernels (interpret mode) where the
+    batch is no multiple of 32 or 128 on the port's side (the reference
+    gets it padded with zero-LLR packets), B = 1 and a single chunk
+    T = 64; traceback from state 0 and from the argmax.  Exact."""
+    rng = np.random.default_rng(12)
+    l0, l1 = _planes(rng, T_, B_)
+    pm0 = _pm0(kind, B_)
+    jd = JVP.acs_sweep_packed(*_jax_planes(l0, l1, B_), _jax_pm0(pm0, B_),
+                              interpret=True)
+    pd = PVK.acs_sweep_packed(torch.from_numpy(l0), torch.from_numpy(l1),
+                              None if pm0 is None else torch.from_numpy(pm0))
+    assert pd[0].dtype == torch.uint8 and pd[0].shape == (T_ // 4, 32, B_)
+    assert pd[2].dtype == torch.float32 and pd[2].shape == (64, B_)
+    assert int(pd[0].max()) <= 15 and int(pd[1].max()) <= 15
+    for a, b in zip(jd, pd):
+        assert np.array_equal(np.asarray(a)[..., :B_].astype(np.float32),
+                              b.numpy().astype(np.float32))
+    best = np.asarray(jnp.argmax(jd[2], axis=0))
+    mask0 = jnp.asarray((np.arange(64)[:, None] == best[None])
+                        .astype(np.float32))
+    s0 = torch.from_numpy(best[:B_].astype(np.int32))
+    assert torch.equal(PVK.argmax_start(pd[2].T.contiguous()), s0)
+    for jmask, start in ((None, None), (mask0, s0)):
+        ref = np.asarray(JVP.traceback_sweep_packed(jd[0], jd[1], jmask,
+                                                    interpret=True))
+        got = PVK.traceback_sweep_packed(pd[0], pd[1], start)
+        assert got.dtype == torch.uint8 and got.shape == (T_, B_)
+        assert np.array_equal(ref[:, :B_], got.numpy().astype(np.float32))
+
+
+def test_pack_unpack_roundtrip():
+    """``unpack_planes(pack_planes(x)) == x`` for any 0/1 planes and
+    ``pack_planes(unpack_planes(y)) == y`` for any bytes 0..15; bit i of
+    a byte is step 4q+i."""
+    rng = np.random.default_rng(13)
+    x = torch.from_numpy(rng.integers(0, 2, (64, 32, 5), dtype=np.uint8))
+    y = PVK.pack_planes(x)
+    assert y.dtype == torch.uint8 and y.shape == (16, 32, 5)
+    assert torch.equal(PVK.unpack_planes(y), x)
+    assert torch.equal(y[3], x[12] + 2 * x[13] + 4 * x[14] + 8 * x[15])
+    z = torch.from_numpy(rng.integers(0, 16, (16, 32, 7), dtype=np.uint8))
+    u = PVK.unpack_planes(z)
+    assert u.shape == (64, 32, 7) and int(u.max()) == 1
+    assert torch.equal(PVK.pack_planes(u), z)
+
+
 def test_packed_wrappers_check_inputs():
     PVK.reset_launch_counts()
     x = torch.zeros((64, 4))
@@ -317,23 +370,60 @@ def test_packed_wrappers_check_inputs():
 
 @pytest.mark.gpu
 def test_packed_kernels_match_twins_on_card():
-    """K4/K5 on the card == their twins and == K1/K2 on the card."""
+    """K4/K5 on the card == their twins and == K1/K2 on the card, from
+    pinned and uniform metrics and from both starts, for both block sizes
+    of the kernels (8 packets up to B = 1024, 32 beyond): whole blocks
+    (64), a batch that ends inside a block (100, 300, 1100) and one whose
+    rows move byte by byte (37, 1037)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     rng = np.random.default_rng(4)
     dev = torch.device("cuda", 0)
-    planes = _planes(rng, 640, 300)
-    l0, l1 = (torch.from_numpy(a).to(dev) for a in planes)
-    for pm0 in (PVK.state0_metrics(300, dev).T.contiguous(),
-                torch.zeros((64, 300), device=dev)):
-        got = PVK.acs_sweep_packed(l0, l1, pm0)
-        ref = PVK.acs_sweep_packed_ref(l0, l1, pm0)
-        for a, b in zip(got, ref):
-            assert torch.equal(a, b)
-        dec, pm = PVK.acs_sweep(_pairs(*planes).to(dev), pm0.T.contiguous())
-        assert torch.equal(pm.T, got[2])
-        for s0 in (PVK.state0_start(300, dev), PVK.argmax_start(pm)):
-            bits = PVK.traceback_sweep_packed(got[0], got[1], s0)
-            assert torch.equal(bits, PVK.traceback_packed_ref(got[0], got[1],
-                                                              s0))
-            assert torch.equal(bits, PVK.traceback_sweep(dec, s0).T)
+    for T_, B_ in ((640, 300), (128, 64), (128, 100), (64, 37),
+                   (128, 1100), (64, 1037)):
+        planes = _planes(rng, T_, B_)
+        l0, l1 = (torch.from_numpy(a).to(dev) for a in planes)
+        for pm0 in (PVK.state0_metrics(B_, dev).T.contiguous(),
+                    torch.zeros((64, B_), device=dev)):
+            got = PVK.acs_sweep_packed(l0, l1, pm0)
+            ref = PVK.acs_sweep_packed_ref(l0, l1, pm0)
+            for a, b in zip(got, ref):
+                assert torch.equal(a, b)
+            dec, pm = PVK.acs_sweep(_pairs(*planes).to(dev),
+                                    pm0.T.contiguous())
+            assert torch.equal(pm.T, got[2])
+            for s0 in (PVK.state0_start(B_, dev), PVK.argmax_start(pm)):
+                bits = PVK.traceback_sweep_packed(got[0], got[1], s0)
+                assert torch.equal(
+                    bits, PVK.traceback_packed_ref(got[0], got[1], s0))
+                assert torch.equal(bits, PVK.traceback_sweep(dec, s0).T)
+
+
+def test_chip_smoke_reads_ptxas_output():
+    """``chip_smoke.ptxas_summary`` names each kernel (a template with its
+    argument), its registers, shared memory and spills from ``nvcc
+    -Xptxas -v`` output; the script fails a run on any spill."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    sym = "_ZN43_GLOBAL__N__7f84d0d6_10_viterbi_cu_58d9a972"
+    log = f"""ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '{sym}17acs_packed_kernelILi8EEEvPKfS2_S2_PhS3_Pfiii' for 'sm_90a'
+ptxas info    : Function properties for {sym}17acs_packed_kernelILi8EEEvPKfS2_S2_PhS3_Pfiii
+    8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 64 registers, used 1 barriers, 8 bytes cumulative stack size, 12288 bytes smem
+ptxas info    : Compiling entry function '{sym}10acs_kernelEPK6float2PKfP5uint2Pfii' for 'sm_90a'
+ptxas info    : Function properties for {sym}10acs_kernelEPK6float2PKfP5uint2Pfii
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 37 registers, used 0 barriers, 1024 bytes smem
+ptxas info    : Compiling entry function '{sym}15derotate_kernelEPKfS1_S1_PfS2_iif' for 'sm_90a'
+    32 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 23 registers, used 0 barriers, 32 bytes cumulative stack size
+"""
+    assert smoke.ptxas_summary(log) == {
+        "acs_packed_kernel<8>": {"registers": 64, "smem_bytes": 12288,
+                                 "spill_bytes": 8},
+        "acs_kernel": {"registers": 37, "smem_bytes": 1024, "spill_bytes": 0},
+        "derotate_kernel": {"registers": 23, "smem_bytes": 0,
+                            "spill_bytes": 0}}

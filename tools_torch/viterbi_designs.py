@@ -4,17 +4,20 @@
     python3 tools_torch/viterbi_designs.py [T] [B]
 
 The package's K1 (``acs_sweep``) and K2 (``traceback_sweep``) are one
-warp per packet on packet-major data with two decision words a step.
-The design they replaced (one thread per packet, batch-minor planes, one
-byte per decision; ``earlier_viterbi.cu`` beside this file) is kept only
-as a baseline: this tool builds it with ``nvcc`` into the package's build
-directory, checks that both designs give the same decisions, metrics and
-bits on the same LLRs, and times them in turns (earlier, new, new,
-earlier) with CUDA events, on random LLRs and on noisy codewords (the
-earlier traceback's loads depend on the decisions, the package's do
-not).  It needs a CUDA card and ``nvcc``.
-:func:`compare` is also what ``chip_smoke.py`` calls for its
-``earlier_ms`` entries.
+warp per packet on packet-major data with two decision words a step; its
+K4 (``acs_sweep_packed``) and K5 (``traceback_sweep_packed``) are one
+warp per packet in blocks of 32 neighbouring packets on the reference's
+batch-minor planes.  The design they replaced (one thread per packet,
+batch-minor planes, a traceback whose loads depend on the state;
+``earlier_viterbi.cu`` beside this file) is kept only as a baseline: this
+tool builds it with ``nvcc`` into the package's build directory, checks
+that both designs give the same decisions, metrics and bits on the same
+LLRs, and times them in turns (earlier, new, new, earlier) with CUDA
+events, on random LLRs and on noisy codewords (the earlier tracebacks'
+loads depend on the decisions, the package's do not).  It needs a CUDA
+card and ``nvcc``.  :func:`compare` (K1/K2) and :func:`compare_packed`
+(K4/K5) are also what ``chip_smoke.py`` calls for its ``earlier_ms``
+entries.
 """
 from __future__ import annotations
 
@@ -47,9 +50,11 @@ def start_build():
 @functools.lru_cache(maxsize=None)
 def _lib(so: Path) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(so))
-    lib.earlier_acs_sweep.argtypes = [_VP] * 6 + [_CI, _CI, _VP]
-    lib.earlier_traceback_sweep.argtypes = [_VP] * 4 + [_CI, _CI, _VP]
-    lib.earlier_acs_sweep.restype = lib.earlier_traceback_sweep.restype = _CI
+    for fn in (lib.earlier_acs_sweep, lib.earlier_acs_sweep_packed):
+        fn.argtypes = [_VP] * 6 + [_CI, _CI, _VP]
+    for fn in (lib.earlier_traceback_sweep,
+               lib.earlier_traceback_sweep_packed):
+        fn.argtypes = [_VP] * 4 + [_CI, _CI, _VP]
     return lib
 
 
@@ -71,28 +76,32 @@ def _call(fn, *args):
         raise RuntimeError(f"earlier kernel launch failed: cudaError {rc}")
 
 
-def earlier_acs(lib, llr0, llr1, pm0):
-    """(T, B) planes, (64, B) metrics -> (T, 32, B) uint8 planes x 2 and
-    the final (64, B) metrics: the earlier K1."""
+def earlier_acs(lib, llr0, llr1, pm0, packed: bool = False):
+    """(T, B) planes, (64, B) metrics -> decision planes x 2 and the
+    final (64, B) metrics: the earlier K1 ((T, 32, B) uint8 0/1 planes)
+    or, ``packed``, the earlier K4 ((T/4, 32, B), four steps a byte)."""
     import torch
     n_steps, B = llr0.shape
-    dec_lo = torch.empty((n_steps, 32, B), dtype=torch.uint8,
-                         device=llr0.device)
+    dec_lo = torch.empty((n_steps // 4 if packed else n_steps, 32, B),
+                         dtype=torch.uint8, device=llr0.device)
     dec_hi = torch.empty_like(dec_lo)
     pm = torch.empty_like(pm0)
-    _call(lib.earlier_acs_sweep, llr0.data_ptr(), llr1.data_ptr(),
-          pm0.data_ptr(), dec_lo.data_ptr(), dec_hi.data_ptr(),
-          pm.data_ptr(), n_steps, B)
+    _call(lib.earlier_acs_sweep_packed if packed else lib.earlier_acs_sweep,
+          llr0.data_ptr(), llr1.data_ptr(), pm0.data_ptr(),
+          dec_lo.data_ptr(), dec_hi.data_ptr(), pm.data_ptr(), n_steps, B)
     return dec_lo, dec_hi, pm
 
 
-def earlier_traceback(lib, dec_lo, dec_hi, start):
-    """(T, 32, B) planes, (B,) start -> (T, B) bits: the earlier K2."""
+def earlier_traceback(lib, dec_lo, dec_hi, start, packed: bool = False):
+    """Decision planes, (B,) start -> (T, B) bits: the earlier K2, or,
+    ``packed``, the earlier K5 over (T/4, 32, B) planes."""
     import torch
-    n_steps, _, B = dec_lo.shape
+    n_rows, _, B = dec_lo.shape
+    n_steps = 4 * n_rows if packed else n_rows
     bits = torch.empty((n_steps, B), dtype=torch.uint8, device=dec_lo.device)
-    _call(lib.earlier_traceback_sweep, dec_lo.data_ptr(), dec_hi.data_ptr(),
-          start.data_ptr(), bits.data_ptr(), n_steps, B)
+    _call(lib.earlier_traceback_sweep_packed if packed
+          else lib.earlier_traceback_sweep, dec_lo.data_ptr(),
+          dec_hi.data_ptr(), start.data_ptr(), bits.data_ptr(), n_steps, B)
     return bits
 
 
@@ -135,8 +144,14 @@ def compare(lib, llr, reps: int = 10) -> dict:
              "tb_earlier": lambda: earlier_traceback(lib, dec_lo, dec_hi,
                                                      start),
              "tb": lambda: VK.traceback_sweep(dec, start)}
+    return _in_turns(turns, ("acs", "tb"), reps)
+
+
+def _in_turns(turns: dict, kinds, reps: int) -> dict:
+    """``{name}_ms`` and ``{name}_earlier_ms`` for each kind: the mean of
+    two turns of ``reps`` launches (earlier, new, new, earlier)."""
     out = {}
-    for kind in ("acs", "tb"):
+    for kind in kinds:
         order = (f"{kind}_earlier", kind, kind, f"{kind}_earlier")
         times = {k: [] for k in order}
         for k in order:
@@ -144,6 +159,36 @@ def compare(lib, llr, reps: int = 10) -> dict:
         for k, v in times.items():
             out[k + "_ms"] = sum(v) / len(v)
     return out
+
+
+def compare_packed(lib, llr, reps: int = 10) -> dict:
+    """:func:`compare` for K4/K5: both designs on the batch-minor planes
+    of the (B, T, 2) LLR pairs ``llr`` from pinned metrics and a state-0
+    start; equal planes, metrics and bits required."""
+    import torch
+    from gr_ieee80211_tpu_torch.ops import viterbi_kernels as VK
+    B = llr.shape[0]
+    llr0 = llr[:, :, 0].T.contiguous()
+    llr1 = llr[:, :, 1].T.contiguous()
+    pm0 = VK.state0_metrics(B, llr.device).T.contiguous()
+    start = VK.state0_start(B, llr.device)
+    new = VK.acs_sweep_packed(llr0, llr1, pm0)
+    old = earlier_acs(lib, llr0, llr1, pm0, packed=True)
+    bits = VK.traceback_sweep_packed(new[0], new[1], start)
+    bits_e = earlier_traceback(lib, old[0], old[1], start, packed=True)
+    torch.cuda.synchronize()
+    if not (all(torch.equal(a, b) for a, b in zip(new, old))
+            and torch.equal(bits, bits_e)):
+        raise AssertionError("the two packed designs disagree")
+    dec_lo, dec_hi, _ = new
+    turns = {"acs_packed_earlier": lambda: earlier_acs(lib, llr0, llr1, pm0,
+                                                       packed=True),
+             "acs_packed": lambda: VK.acs_sweep_packed(llr0, llr1, pm0),
+             "tb_packed_earlier": lambda: earlier_traceback(
+                 lib, dec_lo, dec_hi, start, packed=True),
+             "tb_packed": lambda: VK.traceback_sweep_packed(dec_lo, dec_hi,
+                                                            start)}
+    return _in_turns(turns, ("acs_packed", "tb_packed"), reps)
 
 
 def make_llrs(rng, kind: str, n_steps: int, B: int):
@@ -174,15 +219,18 @@ def main(argv) -> int:
         return 2
     n_steps = int(argv[1]) if len(argv) > 1 else 4480
     B = int(argv[2]) if len(argv) > 2 else 4096
-    lib, log = finish_build(start_build())
-    for line in log.splitlines():
-        if "registers" in line or "Compiling" in line:
+    from gr_ieee80211_tpu_torch.ops import cuda_lib as CL
+    handle = start_build()              # beside the package's sources
+    package_log = CL.build()[2]
+    lib, log = finish_build(handle)
+    for line in (package_log + log).splitlines():
+        if "registers" in line or "spill" in line or "Compiling" in line:
             print(" ", line.strip())
     rng = np.random.default_rng(7)
     res = {}
     for kind in ("random", "coded"):
-        res[kind] = compare(lib, torch.from_numpy(
-            make_llrs(rng, kind, n_steps, B)).cuda())
+        llr = torch.from_numpy(make_llrs(rng, kind, n_steps, B)).cuda()
+        res[kind] = {**compare(lib, llr), **compare_packed(lib, llr)}
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
