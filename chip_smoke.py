@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's receive chain and engine on one CUDA card and
-check them.
+"""Drive the PyTorch port's receive chain, engine, transmitter and MU-MIMO
+sounding loop on one CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -43,7 +43,30 @@ Phases (any failure exits non-zero before the final line):
    format, MCS and MPDUs), timed with and without speculation; (c) a
    2-antenna stream of HT MCS8-15 and VHT 2-SS packets; (d) a small mixed
    stream through the engine on the card and on the CPU, per-packet
-   equal.  K1/K2 must launch in the engine runs.
+   equal.  K1/K2 must launch in the engine runs;
+7. transmit, single user (e): ``tx_batch`` / ``TxEngine.tx`` of 4096 VHT
+   MCS7 A-MPDUs of one 530 B MPDU each, a different random payload and
+   scrambler seed per packet, held to the numpy gold model on 8 of them
+   (< 2e-6); the waveforms stay on the card, are laid into one stream
+   (240-sample gaps, 900 Hz CFO, 32 dB AWGN from a seeded
+   ``torch.Generator``) and go through ``rx_chain_count`` /
+   ``rx_chain_ok``: 4096 detected, >= 99% pass FCS, sampled PSDUs equal
+   the bytes sent;
+8. transmit, MU (f): ``TxEngine.tx_mu`` of 2048 two-user PPDUs (both VHT
+   MCS7, 530 B and 330 B MPDUs) with a seeded random Q, held to the gold
+   model on 4 of them (< 2e-5);
+9. the sounding loop (g): ``TxEngine.tx`` of a VHT 2-stream NDP -> two
+   seeded 1x2 station channels -> each station's ``RxEngine.process`` ->
+   its NDP channel estimate -> feedback rows -> zero-forcing Q ->
+   ``TxEngine.tx_mu`` of 2048 PPDUs (user 0 MCS3, user 1 MCS2, payloads
+   varied per packet) -> each station's channel, 300 Hz CFO, 32 dB AWGN ->
+   ``rx_chain_count_mu`` (2048 detected, >= 99% ok) and
+   ``RxEngine(mu_pos=u, mu_gid=2)`` on daemon-shaped blocks (every
+   decoded MPDU is the one sent to that user in that PPDU); a wrong group
+   id decodes nothing and a wrong-MCS config counts 0 ok; (g') the same
+   PPDUs at an SNR where the syndrome gate sends rows to the Viterbi: K1
+   and K2 launch on the MU path, and ``rx_chain_ok_mu`` on the card
+   equals the CPU's on the first 64 packets.
 
 The line before the last is a JSON object describing each kernel; the
 last is ``{"ok": true, "device": {...}}``.  Imports neither JAX nor the
@@ -137,13 +160,18 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def llr_pairs(torch, rng, dev, n_pkts=B):
-    """(n_pkts, T_KERNEL, 2) float32 LLR pairs on ``dev``: random, with
-    punctured zeros (metric ties) and a zero-LLR tail past the chain's
-    T = 4420."""
-    x = rng.normal(size=(n_pkts, T_KERNEL, 2)).astype(np.float32) * 4.0
+def pad64(n_trellis: int) -> int:
+    """The trellis length ``viterbi_decode`` hands K1: padded to 64s."""
+    return -(-n_trellis // 64) * 64
+
+
+def llr_pairs(torch, rng, dev, n_pkts=B, n_trellis=4420):
+    """(n_pkts, pad64(n_trellis), 2) float32 LLR pairs on ``dev``: random,
+    with punctured zeros (metric ties) and a zero-LLR tail past
+    ``n_trellis`` (the chain's T = 4420 pads to T_KERNEL)."""
+    x = rng.normal(size=(n_pkts, pad64(n_trellis), 2)).astype(np.float32) * 4.0
     x[:, 1::3, 1] = 0.0
-    x[:, 4420:] = 0.0
+    x[:, n_trellis:] = 0.0
     return torch.from_numpy(x).to(dev)
 
 
@@ -528,15 +556,16 @@ def daemon_stream(rng, snr_db=30.0):
     return (x + noise.astype(np.complex64)), sent
 
 
-def run_blocks(eng, stream):
-    """Feed the stream as rx_daemon blocks (256 samples of left context,
-    BLOCK owned samples, HALO look-ahead) through begin/finish_process
-    with the streamer's trigger-ownership rule; returns (owned results
-    with absolute start/trig, block kinds, seconds per block)."""
+def run_blocks(eng, stream, n_blocks=N_BLOCKS):
+    """Feed the first ``n_blocks`` blocks of the stream as rx_daemon blocks
+    (256 samples of left context, BLOCK owned samples, HALO look-ahead)
+    through begin/finish_process with the streamer's trigger-ownership
+    rule; returns (owned results with absolute start/trig, block kinds,
+    seconds per block)."""
     import torch
     out, kinds, secs = [], [], []
     lctx = np.zeros(LCTX, np.complex64)
-    for k in range(N_BLOCKS):
+    for k in range(n_blocks):
         t0 = k * BLOCK
         block = stream[t0: t0 + BLOCK + HALO]
         view = np.concatenate([lctx, block])[None]
@@ -583,11 +612,7 @@ def phase_engine(torch, CL, PRX, bench, chain_ok):
     launches = {}
 
     def counted(fn, what):
-        CL.reset_launch_counts()
-        out = fn()
-        torch.cuda.synchronize()
-        counts = CL.launch_counts()
-        log(f"engine {what}: kernel launches {counts}")
+        out, counts = counted_run(torch, CL, fn, f"engine {what}")
         for k, v in counts.items():
             launches[k] = launches.get(k, 0) + v
         return out
@@ -694,6 +719,381 @@ def phase_engine_reference(torch, PRX):
         f"({sum(r.ok for r in g)} ok)")
 
 
+# ---------------------------------------------------------------------------
+# transmit and MU-MIMO sounding loop phases
+# ---------------------------------------------------------------------------
+
+B_MU = 2048
+GAP = 240                               # the bench's gap between packets
+SNR_MU_LO = 12.0                        # (g'): MCS3 rows leave the fast path
+CFO_MU_HZ = 300.0
+TOL_TX_SU, TOL_TX_MU = 2e-6, 2e-5       # vs the gold model (float32 IDFT sums)
+STA_ADDR = ("02:00:00:00:00:10", "02:00:00:00:00:11")
+AP_ADDR = "02:00:00:00:00:01"
+
+
+def random_ampdus(rng, n_pkts, n_payload, sta=0):
+    """``n_pkts`` single-MPDU VHT A-MPDUs with different random payloads:
+    (MPDUs, A-MPDUs, (n_pkts, len) uint8 array of the A-MPDU bytes)."""
+    from gr_ieee80211_tpu_torch.gold import mac
+    mpdus = [mac.qos_data_frame(
+        bytes(rng.integers(0, 256, n_payload, dtype=np.uint8)),
+        STA_ADDR[sta], AP_ADDR, STA_ADDR[sta], k % 4096)
+        for k in range(n_pkts)]
+    ams = [mac.ampdu_aggregate_vht([m]) for m in mpdus]
+    return mpdus, ams, np.stack([np.frombuffer(a, np.uint8) for a in ams])
+
+
+def lay_stream(torch, CF, waves, cfo_hz):
+    """(B, n) CF waveforms on the card -> ((N,) CF stream with each packet
+    rotated by ``cfo_hz`` from its own first sample and GAP samples
+    between packets, 1024 before the first; the packets' rms; spacing)."""
+    B, n = waves.shape
+    dev = waves.device
+    ph = (2 * np.pi * cfo_hz / 20e6) * torch.arange(n, dtype=torch.float64,
+                                                    device=dev)
+    w = waves * CF(torch.cos(ph).float(), torch.sin(ph).float())
+
+    def lay(v):
+        out = torch.zeros((B, n + GAP), dtype=torch.float32, device=dev)
+        out[:, :n] = v
+        return torch.nn.functional.pad(out.reshape(-1), (1024, 1024))
+    rms = float(torch.sqrt(waves.abs2().mean()))
+    return CF(lay(w.re), lay(w.im)), rms, n + GAP
+
+
+def add_noise(torch, CF, base, rms, snr_db, gen):
+    """AWGN at ``snr_db`` below the packets' rms, from ``gen``; returns the
+    (1, N) stream the chains take."""
+    sigma = rms / 10 ** (snr_db / 20) / np.sqrt(2)
+    n = base.shape[-1]
+    nz = torch.randn((2, n), generator=gen, device=base.device) * sigma
+    return CF((base.re + nz[0])[None], (base.im + nz[1])[None])
+
+
+def counted_run(torch, CL, fn, what):
+    """``fn()`` with the kernels' launch counts zeroed before and read
+    after: (result, counts)."""
+    CL.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    counts = CL.launch_counts()
+    log(f"{what}: kernel launches {counts}")
+    return out, counts
+
+
+def timed(torch, fn, what, n_items, unit, smi):
+    fn()                                # warm the allocator and the caches
+    ms = cuda_ms(fn, N_REP)
+    log(f"{what}: {ms:.2f} ms/batch, {n_items / ms * 1e3:,.0f} {unit}/s (CUDA "
+        f"events, warmed, mean of {N_REP}; {smi})")
+    return ms
+
+
+def phase_tx_su(torch, CL, PRX, PTX, CF, bench, smi):
+    """(e) the port's transmitter feeds the port's chain at full width."""
+    from gr_ieee80211_tpu_torch.gold import tx as gtx
+    cfg = bench[0]
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(41)
+    mpdus, ams, arr = random_ampdus(rng, B, 500)
+    check(arr.shape == (B, cfg.length), f"(e) A-MPDUs of {arr.shape[1]} B")
+    seeds = (np.arange(B) % 127 + 1).astype(np.int64)
+    arr_d, seeds_d = torch.from_numpy(arr).to(dev), torch.from_numpy(seeds).to(dev)
+    waves = PTX.tx_batch(cfg, arr_d, seeds_d)
+    check(waves.shape == (B, 1, cfg.n_samples)
+          and bool(torch.isfinite(waves.re).all() & torch.isfinite(waves.im).all()),
+          f"(e) tx_batch gave {tuple(waves.shape)}")
+    eng = PTX.TxEngine().tx(cfg, ams[:8], seeds=seeds[:8])
+    err = 0.0
+    for i in range(8):
+        gold = gtx.tx_waveform(cfg, ams[i], seed=int(seeds[i]), group_id=0,
+                               partial_aid=0)
+        got = waves.re[i].cpu().numpy() + 1j * waves.im[i].cpu().numpy()
+        err = max(err, float(np.abs(got - gold).max()),
+                  float(np.abs(eng[i] - gold).max()))
+    check(err < TOL_TX_SU, f"(e) tx_batch vs gold: max |err| {err:.3g}")
+    log(f"tx (e): tx_batch and TxEngine.tx of {B} VHT mcs{MCS} packets, 8 held "
+        f"to the gold model: max |err| {err:.3g} (< {TOL_TX_SU:g})")
+
+    base, rms, spacing = lay_stream(torch, CF, waves[:, 0], CFO_HZ)
+    gen = torch.Generator(device=dev).manual_seed(43)
+    stream = add_noise(torch, CF, base, rms, SNR_HI, gen)
+    ml = len(mpdus[0])
+    rec = []
+    (n_ok, n_det), counts = counted_run(
+        torch, CL, lambda: tuple(int(x) for x in PRX.rx_chain_count(
+            cfg, stream, mpdu_len=ml, max_pkts=B, record=rec)), "tx (e) chain")
+    check(n_det == B, f"(e) detected {n_det} of {B}")
+    check(n_ok >= 0.99 * B, f"(e) only {n_ok} of {B} passed FCS")
+    ok, ltf, valid = PRX.rx_chain_ok(cfg, stream, mpdu_len=ml, max_pkts=B)
+    check(int(ok.sum()) == n_ok and bool(valid.all()),
+          "(e) rx_chain_ok disagrees with rx_chain_count")
+    sent_at = 1024 + spacing * torch.arange(B, device=dev)
+    check(bool(((ltf - sent_at - 192).abs() < 32).all()),
+          "(e) a packet was not found where it was laid")
+    _, ltf_c, cfo, _ = PRX._detect_sync(cfg, stream, B)
+    rows = torch.arange(5, B, B // 64, device=dev)
+    out = PRX._payload_core(cfg, stream, ltf_c[rows], cfo[rows], mpdu_len=ml)
+    check(bool((out["psdu"][:, : cfg.length] == arr_d[rows]).all()),
+          "(e) decoded PSDU bytes differ from the bytes sent")
+    log(f"tx (e): own transmitter -> chain at {SNR_HI:g} dB: {n_det}/{B} "
+        f"detected, {n_ok} ok, path {rec}, {len(rows)} sampled PSDUs equal "
+        "the bytes sent")
+    ms = timed(torch, lambda: PTX.tx_batch(cfg, arr_d, seeds_d),
+               f"tx_batch B={B} VHT mcs{MCS} 530 B MPDU", B, "pkt", smi)
+    return counts, {"tx_batch_ms": ms, "tx_su_max_abs_err": err,
+                    "tx_su_n_ok": n_ok}
+
+
+def phase_tx_mu(torch, PTX, from_numpy_cf, smi):
+    """(f) the two-user MU transmit at full width against the gold model."""
+    from gr_ieee80211_tpu_torch.gold import tx as gtx
+    from gr_ieee80211_tpu_torch.spec.params import Fmt, PhyConfig, mu_config
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(47)
+    _, ams0, arr0 = random_ampdus(rng, B_MU, 500, 0)
+    _, ams1, arr1 = random_ampdus(rng, B_MU, 300, 1)
+    mu = mu_config([PhyConfig(Fmt.VHT, 7, 1, arr0.shape[1], ampdu=True),
+                    PhyConfig(Fmt.VHT, 7, 1, arr1.shape[1], ampdu=True)],
+                   group_id=2)
+    q = (rng.normal(size=(64, 2, 2)) + 1j * rng.normal(size=(64, 2, 2))
+         ) / np.sqrt(2)
+    seeds = (np.arange(B_MU) % 127 + 1).astype(np.int64)
+    waves = PTX.TxEngine().tx_mu(mu, [ams0, ams1], q, seeds=seeds)
+    check(waves.shape == (B_MU, 2, mu.n_samples) and np.isfinite(waves).all(),
+          f"(f) tx_mu gave {waves.shape}")
+    err = 0.0
+    for i in (0, 1, B_MU // 2, B_MU - 1):
+        gold = gtx.tx_waveform_mu(mu, [ams0[i], ams1[i]], q,
+                                  seed=int(seeds[i]))
+        err = max(err, float(np.abs(waves[i] - gold).max()))
+    check(err < TOL_TX_MU, f"(f) tx_mu vs gold: max |err| {err:.3g}")
+    log(f"tx (f): TxEngine.tx_mu of {B_MU} two-user VHT mcs7 PPDUs (seeded "
+        f"random Q), 4 held to the gold model: max |err| {err:.3g} "
+        f"(< {TOL_TX_MU:g})")
+    pays = (torch.from_numpy(arr0).to(dev), torch.from_numpy(arr1).to(dev))
+    seeds_d, q_d = torch.from_numpy(seeds).to(dev), from_numpy_cf(q, dev)
+    ms = timed(torch, lambda: PTX.tx_batch_mu(mu, pays, seeds_d, q_d),
+               f"tx_batch_mu B={B_MU} 2 users VHT mcs7", B_MU, "PPDU", smi)
+    return {"tx_batch_mu_ms": ms, "tx_mu_max_abs_err": err}
+
+
+def check_mu_results(results, sent, spacing, what):
+    """Every ok result carries exactly the MPDU sent in the PPDU at its
+    trigger; returns the number of distinct PPDUs decoded."""
+    seen = set()
+    for r in results:
+        if not r.ok:
+            continue
+        i = int(round((r.trig - 1024) / spacing))
+        check(0 <= i < len(sent) and abs(r.trig - 1024 - i * spacing) < 400,
+              f"{what}: a result at trig {r.trig} matches no PPDU")
+        check(r.mpdus == [sent[i]],
+              f"{what}: PPDU {i} decoded to another MPDU than the one sent")
+        check(i not in seen, f"{what}: PPDU {i} decoded twice")
+        seen.add(i)
+    return len(seen)
+
+
+def mu_sounding(PRX, txe, rng):
+    """Phase (g)'s sounding: two seeded 1x2 station channels; the NDP
+    through ``txe.tx`` -> each channel -> each station's
+    ``RxEngine(nrx=1).process`` -> feedback rows -> the zero-forcing Q.
+    Returns (the channels, Q (56, 2, 2))."""
+    from gr_ieee80211_tpu_torch.gold import channel, sounding
+    from gr_ieee80211_tpu_torch.spec.params import Fmt, PhyConfig
+    h_sta = [(rng.normal(size=(1, 2)) + 1j * rng.normal(size=(1, 2)))
+             / np.sqrt(2) for _ in range(2)]
+    ndp = txe.tx(PhyConfig(Fmt.VHT, 0, 2, 0, ampdu=True), [b""])[0]
+    fb = []
+    for u in range(2):
+        s = channel.frame_stream(channel.mimo_channel(ndp, h_sta[u]), 1.0,
+                                 200.0 + 100 * u, gap=1200)
+        s = channel.awgn(s, 0.015 / 10 ** (35 / 20), rng)
+        res = PRX.RxEngine(nrx=1).process(s.astype(np.complex64))
+        check(len(res) == 1 and res[0].is_ndp and res[0].nss == 2
+              and res[0].ndp_chan.shape == (1, 2, 64),
+              f"(g) station {u} did not find the NDP")
+        fb.append(sounding.feedback_from_ndp(res[0].ndp_chan)[0])
+    return h_sta, sounding.zf_q(np.stack(fb))
+
+
+def mu_traffic(rng):
+    """Phase (g)'s PPDUs: B_MU two-user PPDUs, user 0 VHT MCS3 (120 B
+    payload), user 1 MCS2 (84 B), payloads varied.  Returns (the
+    MuConfig, per user: MPDUs sent, A-MPDUs, (B_MU, len) uint8 arrays; the
+    scrambler seeds)."""
+    from gr_ieee80211_tpu_torch.spec.params import Fmt, PhyConfig, mu_config
+    sent, ams, arrs = zip(*(random_ampdus(rng, B_MU, n, u)
+                            for u, n in enumerate((120, 84))))
+    mu = mu_config([PhyConfig(Fmt.VHT, 3, 1, arrs[0].shape[1], ampdu=True),
+                    PhyConfig(Fmt.VHT, 2, 1, arrs[1].shape[1], ampdu=True)],
+                   group_id=2)
+    seeds = (np.arange(B_MU) % 127 + 1).astype(np.int64)
+    return mu, sent, ams, arrs, seeds
+
+
+def mu_user_cfg(mu, u):
+    """The config station ``u`` decodes its own stream of ``mu`` with."""
+    from gr_ieee80211_tpu_torch.spec.params import Fmt, PhyConfig
+    uc = mu.users[u]
+    return PhyConfig(Fmt.VHT, uc.mcs, 1, uc.psdu_len, ampdu=True,
+                     mu_nsym=mu.nsym)
+
+
+def mu_heard(torch, CF, waves, h):
+    """(B, 2, n) transmit waveforms through the 1x2 channel row ``h``:
+    what the station's one antenna hears, (B, n)."""
+    dev = waves.re.device
+    taps = [CF(torch.tensor(float(v.real), device=dev),
+               torch.tensor(float(v.imag), device=dev)) for v in h]
+    return waves[:, 0] * taps[0] + waves[:, 1] * taps[1]
+
+
+def phase_mu_loop(torch, VK, CL, PRX, PTX, CF, from_numpy_cf, smi):
+    """(g), (g'): NDP sounding -> ZF Q -> precoded MU PPDUs -> each
+    station's decode, through the entry points, on the card.  K1/K2 are
+    held to their twins at the shape each user's decode gives them."""
+    from gr_ieee80211_tpu_torch.gold import sounding
+    from gr_ieee80211_tpu_torch.ops.cplx import to_numpy
+    from gr_ieee80211_tpu_torch.spec.params import Fmt, PhyConfig
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(53)
+    txe = PTX.TxEngine()
+
+    # sounding: NDP -> each station's channel estimate -> feedback -> ZF Q
+    h_sta, q56 = mu_sounding(PRX, txe, rng)
+    hq = np.einsum("utk,ktj->kuj", np.stack([np.repeat(
+        h[0][:, None], 56, axis=1) for h in h_sta]), q56)
+    leak_db = 10 * np.log10(
+        (np.abs(hq[:, 0, 1]) ** 2 + np.abs(hq[:, 1, 0]) ** 2).mean()
+        / (np.abs(hq[:, 0, 0]) ** 2 + np.abs(hq[:, 1, 1]) ** 2).mean())
+    log(f"mu (g): sounded both stations; leakage through the ZF Q of the "
+        f"estimated channels {leak_db:.1f} dB")
+    check(leak_db < -25.0, f"(g) ZF Q leaks {leak_db:.1f} dB")
+    bfq = sounding.q_to_grid(q56)
+
+    mu, sent, ams, arrs, seeds = mu_traffic(rng)
+    waves_np = txe.tx_mu(mu, list(ams), bfq, seeds=seeds)
+    check(waves_np.shape == (B_MU, 2, mu.n_samples),
+          f"(g) tx_mu gave {waves_np.shape}")
+    waves = from_numpy_cf(waves_np, dev)
+    log(f"mu (g): TxEngine.tx_mu of {B_MU} PPDUs, nsym {mu.nsym}, "
+        f"{mu.n_samples} samples each")
+
+    # K1/K2 against their twins at the shapes the MU decode gives them:
+    # B_MU rows, each user's trellis padded to 64s (uniform pm0 and the
+    # argmax start are the window tiers' use of the same kernels)
+    held, errs = [], [0.0, 0.0]
+    krng = np.random.default_rng(61)
+    for u in range(2):
+        n_trellis = mu_user_cfg(mu, u).n_trellis
+        llr = llr_pairs(torch, krng, dev, B_MU, n_trellis)
+        e = hold_k1_k2(torch, VK, llr, f"the MU shape of user {u}: "
+                       f"T={llr.shape[1]} (n_trellis {n_trellis}) B={B_MU}")
+        errs = [max(a, b) for a, b in zip(errs, e)]
+        held.append({"user": u, "T": llr.shape[1], "B": B_MU})
+        del llr
+
+    gen = torch.Generator(device=dev).manual_seed(59)
+    out = {"mu_n_ok": [], "mu_lo_n_ok": [], "mu_k1_k2_held_at": held}
+    launches = {"mu": {}, "mu_lo": {}}
+
+    def add(into, counts):
+        for k, v in counts.items():
+            into[k] = into.get(k, 0) + v
+
+    for u in range(2):
+        heard = mu_heard(torch, CF, waves, h_sta[u][0])
+        base, rms, spacing = lay_stream(torch, CF, heard, CFO_MU_HZ)
+        stream = add_noise(torch, CF, base, rms, SNR_HI, gen)
+        uc = mu.users[u]
+        cfg = mu_user_cfg(mu, u)
+        ml = len(sent[u][0])
+
+        def count(c, st, record=None):
+            return tuple(int(x) for x in PRX.rx_chain_count_mu(
+                c, st, n_total=2, own=u, mpdu_len=ml, max_pkts=B_MU,
+                record=record))
+
+        rec = []
+        (n_ok, n_det), counts = counted_run(
+            torch, CL, lambda: count(cfg, stream, rec),
+            f"mu (g) user {u} chain")
+        add(launches["mu"], counts)
+        check(n_det == B_MU, f"(g) user {u}: detected {n_det} of {B_MU}")
+        check(n_ok >= 0.99 * B_MU, f"(g) user {u}: only {n_ok} of {B_MU} ok")
+        out["mu_n_ok"].append(n_ok)
+        wrong = PhyConfig(Fmt.VHT, uc.mcs + 1, 1, uc.psdu_len, ampdu=True,
+                          mu_nsym=mu.nsym)
+        n_ok_w, n_det_w = count(wrong, stream)
+        check(n_det_w == B_MU and n_ok_w == 0,
+              f"(g) user {u}: a wrong-MCS config counted {n_ok_w} ok")
+        log(f"mu (g) user {u}: rx_chain_count_mu at {SNR_HI:g} dB "
+            f"{n_det}/{B_MU} detected, {n_ok} ok, path {rec}; wrong-MCS "
+            f"config {n_ok_w} ok")
+
+        # the general engine on daemon-shaped blocks of the same stream
+        x = to_numpy(stream)[0].astype(np.complex64)
+        n_blocks = -(-len(x) // BLOCK)
+        x = np.concatenate([x, np.zeros(n_blocks * BLOCK + HALO - len(x),
+                                        np.complex64)])
+        eng = PRX.RxEngine(nrx=1, mu_pos=u, mu_gid=2)
+        (res, _, secs), counts = counted_run(
+            torch, CL, lambda: run_blocks(eng, x, n_blocks),
+            f"mu (g) user {u} engine")
+        add(launches["mu"], counts)
+        n_dec = check_mu_results(res, sent[u], spacing, f"(g) user {u} engine")
+        check(n_dec >= 0.99 * B_MU,
+              f"(g) user {u}: the engine decoded {n_dec} of {B_MU}")
+        other = PRX.RxEngine(nrx=1, mu_pos=u, mu_gid=5)
+        res5, _, _ = run_blocks(other, x, 2)
+        check(not [r for r in res5 if r.ok],
+              f"(g) user {u}: group id 5 decoded {len(res5)} PPDUs")
+        log(f"mu (g) user {u}: RxEngine(mu_pos={u}, mu_gid=2) on {n_blocks} "
+            f"blocks: {n_dec}/{B_MU} PPDUs decoded, each to the MPDU sent, "
+            f"{1e3 * sum(secs) / n_blocks:.1f} ms/block; mu_gid=5 decodes "
+            "nothing")
+
+        # (g') an SNR where rows leave the algebraic fast path
+        lo = add_noise(torch, CF, base, rms, SNR_MU_LO, gen)
+        rec = []
+        (n_ok_lo, n_det_lo), counts = counted_run(
+            torch, CL, lambda: count(cfg, lo, rec),
+            f"mu (g') user {u} chain at {SNR_MU_LO:g} dB")
+        add(launches["mu_lo"], counts)
+        out["mu_lo_n_ok"].append(n_ok_lo)
+        log(f"mu (g') user {u}: {SNR_MU_LO:g} dB: {n_det_lo}/{B_MU} detected, "
+            f"{n_ok_lo} ok (recorded, not bounded), path {rec}")
+        check(rec and rec[-1] != "fast" and counts["acs_sweep"] > 0
+              and counts["traceback_sweep"] > 0,
+              f"(g') user {u}: the MU decode at {SNR_MU_LO:g} dB never "
+              f"launched K1/K2: path {rec}, {counts}")
+        n64 = 1024 + 64 * spacing
+        first = CF(lo.re[:, :n64].contiguous(), lo.im[:, :n64].contiguous())
+        both = []
+        for d in (dev, "cpu"):
+            st = CF(first.re.to(d), first.im.to(d))
+            both.append([t.cpu() for t in PRX.rx_chain_ok_mu(
+                cfg, st, n_total=2, own=u, mpdu_len=ml, max_pkts=64)])
+        for name, a, b in zip(("ok", "ltf_idx", "valid"), *both):
+            check(torch.equal(a, b),
+                  f"(g') user {u}: card and CPU differ in {name}")
+        check(int(both[0][2].sum()) == 64,
+              f"(g') user {u}: {int(both[0][2].sum())} of 64 detected")
+        log(f"mu (g') user {u}: rx_chain_ok_mu on the first 64 PPDUs, card "
+            f"== CPU twins per packet ({int(both[0][0].sum())} ok)")
+        if u == 0:
+            for snr, st in ((SNR_HI, stream), (SNR_MU_LO, lo)):
+                out[f"rx_chain_count_mu_ms_{snr:g}dB"] = timed(
+                    torch, lambda: count(cfg, st),
+                    f"rx_chain_count_mu B={B_MU} user 0 VHT mcs3 at "
+                    f"{snr:g} dB", B_MU, "PPDU", smi)
+    log(f"mu: kernel launches on the MU path: {launches}")
+    return launches, out, errs
+
+
 def ptxas_summary(build_log: str) -> dict:
     """``nvcc -Xptxas -v`` output -> {kernel: {registers, smem_bytes,
     spill_bytes}} (spill stores + loads)."""
@@ -740,17 +1140,19 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     from gr_ieee80211_tpu_torch.models import rx as PRX
+    from gr_ieee80211_tpu_torch.models import tx as PTX
     from gr_ieee80211_tpu_torch.ops import cuda_lib as CL
     from gr_ieee80211_tpu_torch.ops import frontend as FE
     from gr_ieee80211_tpu_torch.ops import viterbi_kernels as VK
-    from gr_ieee80211_tpu_torch.ops.cplx import from_numpy_cf
+    from gr_ieee80211_tpu_torch.ops.cplx import CF, from_numpy_cf
     from tools_torch import viterbi_designs as VD
     check_self_contained()
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60).stdout.strip()
-    log(smi.splitlines()[0])
+    smi = smi.splitlines()[0]
+    log(smi)
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
 
@@ -779,13 +1181,27 @@ def main() -> int:
     phase_reference(torch, PRX, from_numpy_cf, bench)
     engine_launches, _ = phase_engine(torch, CL, PRX, bench, chain_ok)
     phase_engine_reference(torch, PRX)
+    tx_launches, tx_su = phase_tx_su(torch, CL, PRX, PTX, CF, bench, smi)
+    tx_mu = phase_tx_mu(torch, PTX, from_numpy_cf, smi)
+    mu_launches, mu_out, mu_errs = phase_mu_loop(torch, VK, CL, PRX, PTX, CF,
+                                                 from_numpy_cf, smi)
     check_self_contained()
+    log(json.dumps({"paths": {**tx_su, **tx_mu, **mu_out, "card": smi}}))
 
     for k in kernels:
-        k["on_path"] = k["name"] in ("acs_sweep", "traceback_sweep")
-        k["launches_chain"] = launches[k["name"]]
-        k["launches_engine"] = engine_launches[k["name"]]
-        k["launches"] = k["launches_chain"] + k["launches_engine"]
+        name = k["name"]
+        k["on_path"] = name in ("acs_sweep", "traceback_sweep")
+        if k["on_path"]:                # also held at the MU path's shapes
+            k["max_abs_err"] = max(k["max_abs_err"],
+                                   mu_errs[name == "traceback_sweep"])
+            k["held_at_mu"] = mu_out["mu_k1_k2_held_at"]
+        k["launches_chain"] = launches[name]
+        k["launches_engine"] = engine_launches[name]
+        k["launches_tx_su"] = tx_launches[name]
+        k["launches_mu"] = mu_launches["mu"][name]
+        k["launches_mu_lo"] = mu_launches["mu_lo"][name]
+        k["launches"] = sum(k[f"launches_{p}"] for p in (
+            "chain", "engine", "tx_su", "mu", "mu_lo"))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

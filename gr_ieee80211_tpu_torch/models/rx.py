@@ -15,10 +15,12 @@ back from that device.
   channel estimate; homogeneous blocks arm the speculative one-pass path
   (``_spec_core``).  Up to 2 receive antennas and 2 spatial streams (ZF).
 
-Scope: MU-STA decode (``mu_pos``: VHT-SIG-B per user, ``_payload_core_mu``)
-is not ported yet; ``RxEngine(mu_pos=...)`` raises ``NotImplementedError``
-and, as in the reference without ``mu_pos``, an MU PPDU falls through to
-the HT-SIG / L-SIG classification.
+* ``rx_chain_count_mu`` / ``rx_chain_ok_mu`` and ``RxEngine(mu_pos=...)``:
+  the MU-MIMO station's decode.  The channel estimate spans all space-time
+  streams of the PPDU, the station's own column equalizes its VHT-SIG-B
+  and its data, and SIG-B is validated against the CRC in the SERVICE
+  field.  Without ``mu_pos`` an MU PPDU falls through to the HT-SIG /
+  L-SIG classification, as in the reference.
 """
 from __future__ import annotations
 
@@ -211,6 +213,108 @@ def _data_start(cfg: PhyConfig) -> int:
     return 208 + 160 + 80 + 80 * cfg.nltf + 80
 
 
+def _mu_starts(n_total: int) -> tuple[int, int, int, int]:
+    """(nltf, VHT-LTF start, SIG-B start, data start) of an MU PPDU with
+    ``n_total`` space-time streams, relative to ltf_idx."""
+    nltf = int(T.N_LTF_OF_NSTS[n_total])
+    ltf_start = 208 + 160 + 80
+    sigb_start = ltf_start + 80 * nltf
+    return nltf, ltf_start, sigb_start, sigb_start + 80
+
+
+def _mu_sigb_core(stream: CF, ltf_idx: torch.Tensor, cfo: torch.Tensor,
+                  n_total: int, own: int) -> torch.Tensor:
+    """Batched MU VHT-SIG-B decode for one (nsts-tuple, mu_pos) group.
+
+    stream: one antenna's (N,) samples.  Estimates the full n_total-stream
+    channel from the VHT-LTFs, selects the user's own column, equalizes
+    the SIG-B symbol and Viterbi-decodes its 26 bits: (B, 26) uint8.  The
+    window gather is the float32 one (the payload's is bf16-staged)."""
+    nltf, ltf_start, sigb_start, _ = _mu_starts(n_total)
+    dev = stream.device
+    xs = FE.derotate_batch(stream, ltf_idx, cfo, sigb_start + 80)
+    h, pilot_h = OF.nl_chanest(xs[:, None], ltf_start, nltf, n_total)
+    h_own = h[:, 0, own]                                 # (B, 64)
+    g = OF.fft_syms(xs[:, sigb_start + 16: sigb_start + 80])
+    _, pilv = _sigb_consts(dev)
+    exp_p = pilot_h[:, 0] * pilv[None, :]
+    ph = csum(g[:, OF._idx("PILOT_IDX", dev)].mul_conj(exp_p), dim=1).unit()
+    g = g * CF(ph.re[:, None], -ph.im[:, None])
+    didx = OF._idx("DATA_IDX_NL", dev)
+    eq = g[:, didx] / h_own[:, didx]
+    llr = eq.re[:, _perm_on("nl", dev)]
+    return V.viterbi_decode(V.depuncture(llr, "1/2", 26))
+
+
+def _payload_core_mu(cfg: PhyConfig, stream: CF, ltf_idx: torch.Tensor,
+                     cfo: torch.Tensor, n_total: int, own: int,
+                     nrx: int = 1, mpdu_len: int = 0,
+                     record: list | None = None) -> dict:
+    """MU-STA payload decode: like :func:`_payload_core`, but the channel
+    estimate covers all n_total space-time streams and only the user's own
+    column(s) equalize the data (cfg describes the user's own modulation,
+    ``mu_nsym`` the PPDU's symbol count).  No channel refinement: the
+    other users' streams share the training fields.  Returns ``psdu``,
+    ``service`` and, with ``mpdu_len``, ``mpdu_fcs_ok``."""
+    nltf, ltf_start, _, data_start = _mu_starts(n_total)
+    n_need = data_start + 80 * cfg.nsym + 16
+    xs = cstack([FE.derotate_batch(stream[r], ltf_idx, cfo, n_need,
+                                   low_prec=True)
+                 for r in range(nrx)], dim=1)
+    h_all, pilot_h = OF.nl_chanest(xs, ltf_start, nltf, n_total)
+    h = h_all[:, :, own: own + cfg.nss]
+    grids = OF.fft_syms(cstack([OF.extract_sym_windows(xs[:, r], data_start,
+                                                       cfg.nsym)
+                                for r in range(nrx)], dim=1))
+    llr = OF.equalize_and_demap(grids, h, pilot_h, cfg)
+    coded = OF.deinterleave_deparse(llr, cfg)
+    bits = adaptive_decode(coded, cfg.cr, cfg.n_trellis, record=record)
+    data = OF.descramble_bits(bits)
+    psdu_bits = data[:, 16: 16 + 8 * cfg.psdu_len]
+    out = {"psdu": OF.bits_to_bytes_batch(psdu_bits), "service": data[:, :16]}
+    if mpdu_len > 4:
+        mpdu_bits = psdu_bits[:, 32: 32 + 8 * mpdu_len]
+        out["mpdu_fcs_ok"] = CRC.fcs_ok_batch(mpdu_bits, 8 * mpdu_len)
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _crc8_affine() -> tuple[np.ndarray, np.ndarray]:
+    """CRC8 over 20 bits as an affine GF(2) map: crc(b) = M @ b xor c0.
+
+    M's columns come from unit-vector probes of the bit-serial oracle
+    (spec.tables.crc8_bits), so SIG-B is validated against the SERVICE
+    field on the device.  Returns (M (8, 20), c0 (8,)) float64."""
+    n = 20
+    c0 = T.crc8_bits(np.zeros(n, np.uint8)).astype(np.float64)
+    cols = []
+    for i in range(n):
+        e = np.zeros(n, np.uint8)
+        e[i] = 1
+        cols.append((T.crc8_bits(e).astype(np.float64) + c0) % 2)
+    return np.stack(cols, axis=1), c0
+
+
+@functools.lru_cache(maxsize=None)
+def _crc8_affine_on(device: torch.device):
+    M, c0 = _crc8_affine()
+    return torch.from_numpy(M.T.copy()).to(device), \
+        torch.from_numpy(c0).to(device)
+
+
+def _sigb_crc_ok(sigb_bits: torch.Tensor,
+                 service: torch.Tensor) -> torch.Tensor:
+    """SIG-B validation for a (B, 26) bit batch against (B, 16) SERVICE
+    bits: the CRC of the 20 body bits equals SERVICE[8:16] and the tail is
+    zero.  The product is taken in float64 (sums of at most 20 ones are
+    exact in any float type, and a float64 product cannot take TF32)."""
+    Mt, c0 = _crc8_affine_on(sigb_bits.device)
+    crc = torch.remainder(sigb_bits[:, :20].to(torch.float64) @ Mt + c0, 2.0)
+    tail_zero = sigb_bits[:, 20:26].to(torch.int32).sum(dim=1) == 0
+    match = (crc == service[:, 8:16].to(torch.float64)).all(dim=1)
+    return match & tail_zero
+
+
 @functools.lru_cache(maxsize=None)
 def _sigb_reencode_matrix() -> np.ndarray:
     """(52, 26) GF(2) map: decoded VHT-SIG-B bits -> interleaved coded
@@ -344,9 +448,12 @@ def _triggers(stream0: CF, max_pkts: int) -> torch.Tensor:
                                     spacing=TRIG_DEDUP_SPACING)
 
 
-def _detect_sync(cfg: PhyConfig, stream: CF, max_pkts: int, nrx: int = 1):
+def _detect_sync(cfg: PhyConfig, stream: CF, max_pkts: int, nrx: int = 1,
+                 n_need: int | None = None):
     """detect -> dedup -> sync on antenna 0; returns (ltf_idx, ltf_idx
-    clipped into the stream, cfo, valid), max_pkts rows each."""
+    clipped into the stream, cfo, valid), max_pkts rows each.  ``n_need``:
+    samples a packet needs past ltf_idx (default: the SU layout of
+    ``cfg``)."""
     if not 1 <= nrx <= stream.shape[0]:
         raise ValueError(f"nrx={nrx} but the stream has {stream.shape[0]} "
                          "antenna rows")
@@ -355,7 +462,8 @@ def _detect_sync(cfg: PhyConfig, stream: CF, max_pkts: int, nrx: int = 1):
     trigs = torch.clamp(trigs, min=0)
     ltf_idx, peak, cfo, _rssi = _sync_core(stream[0], trigs)
     n = stream.shape[-1]
-    n_need = _data_start(cfg) + 80 * cfg.nsym + 16
+    if n_need is None:
+        n_need = _data_start(cfg) + 80 * cfg.nsym + 16
     valid = valid & (peak > 0.5) & (ltf_idx + n_need < n)
     return ltf_idx, torch.clamp(ltf_idx, 0, n - n_need - 1), cfo, valid
 
@@ -393,6 +501,41 @@ def rx_chain_ok(cfg: PhyConfig, stream: CF, nrx: int = 1, mpdu_len: int = 0,
     out = _payload_core(cfg, stream, ltf_idx_c, cfo, nrx=nrx,
                         mpdu_len=mpdu_len, record=record)
     return _ok_flags(out) & valid, ltf_idx.to(torch.int32), valid
+
+
+def rx_chain_ok_mu(cfg: PhyConfig, stream: CF, n_total: int, own: int,
+                   nrx: int = 1, mpdu_len: int = 0, max_pkts: int = 4096,
+                   record: list | None = None):
+    """Per-packet MU-STA chain: detect -> sync -> SIG-B -> payload.
+
+    The MU twin of :func:`rx_chain_ok` (the station knows its group's
+    config): decodes the user's VHT-SIG-B on antenna 0, validates it
+    against the SERVICE-field CRC and the configured MCS, and decodes the
+    payload through the user's own column of the n_total-stream channel.
+    Returns (ok (max_pkts,) bool, ltf_idx (max_pkts,) int32, valid
+    (max_pkts,) bool)."""
+    n_need = _mu_starts(n_total)[3] + 80 * cfg.nsym + 16
+    ltf_idx, ltf_idx_c, cfo, valid = _detect_sync(cfg, stream, max_pkts, nrx,
+                                                  n_need=n_need)
+    sigb_bits = _mu_sigb_core(stream[0], ltf_idx_c, cfo, n_total, own)
+    pw = torch.tensor([1, 2, 4, 8], device=sigb_bits.device)
+    sigb_mcs = (sigb_bits[:, 16:20].to(torch.int64) * pw).sum(dim=1)
+    out = _payload_core_mu(cfg, stream, ltf_idx_c, cfo, n_total, own,
+                           nrx=nrx, mpdu_len=mpdu_len, record=record)
+    ok = (_ok_flags(out) & _sigb_crc_ok(sigb_bits, out["service"])
+          & (sigb_mcs == cfg.mcs) & valid)
+    return ok, ltf_idx.to(torch.int32), valid
+
+
+def rx_chain_count_mu(cfg: PhyConfig, stream: CF, n_total: int, own: int,
+                      nrx: int = 1, mpdu_len: int = 0, max_pkts: int = 4096,
+                      record: list | None = None):
+    """:func:`rx_chain_ok_mu` counted: (n_fcs_ok, n_detected) as 0-dim
+    int32 tensors, the MU twin of :func:`rx_chain_count`."""
+    ok, _, valid = rx_chain_ok_mu(cfg, stream, n_total, own, nrx=nrx,
+                                  mpdu_len=mpdu_len, max_pkts=max_pkts,
+                                  record=record)
+    return ok.sum().to(torch.int32), valid.sum().to(torch.int32)
 
 
 def _front(stream: CF, max_pkts: int):
@@ -495,14 +638,15 @@ class RxEngine:
                  mu_gid: int | None = None, ingest_bf16: bool = False,
                  ingest: str | None = None, speculate: bool = True,
                  device: str | torch.device = "cuda"):
-        if mu_pos is not None or mu_gid is not None:
-            raise NotImplementedError("MU-STA decode (mu_pos/mu_gid) is not "
-                                      "ported yet")
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("RxEngine(device='cuda') needs a CUDA card; "
                                "pass device='cpu' to run on the CPU")
         self.nrx = nrx
+        #: MU-MIMO station position: with it, MU PPDUs decode this user's
+        #: stream; ``mu_gid`` keeps only PPDUs of that group id
+        self.mu_pos = mu_pos
+        self.mu_gid = mu_gid
         self.ingest = ingest or ("bf16" if ingest_bf16 else "f32")
         if self.ingest not in _INGEST:
             raise ValueError(f"ingest must be one of {sorted(_INGEST)}")
@@ -615,6 +759,9 @@ class RxEngine:
             if cfg is None:
                 kinds.append(None)
                 continue
+            if isinstance(cfg, tuple):          # ("mu", siga, lsig)
+                kinds.append(cfg)
+                continue
             canon = canonical_cfg(cfg)
             if ltf_idx[i] + _data_start(canon) + 80 * canon.nsym + 16 \
                     > n_stream:
@@ -666,9 +813,11 @@ class RxEngine:
                              snr_db=float(snr_db[i]), rssi=float(rssi[i]))
                 r.ndp_chan = hc[j]
                 results[i] = r
+        self._process_mu(dev, ltf_idx, cfo, trigs, kinds, results, n_stream,
+                         snr_db, rssi)
         # next-block speculation: homogeneous sparse data traffic arms it,
-        # mixed data traffic or dense blocks disarm, data-free blocks leave
-        # it as it was
+        # mixed data traffic or dense blocks disarm, data-free blocks (NDP,
+        # MU, idle) leave it as it was
         if len(seen_canons) == 1 and len(ltf_idx) <= SPEC_ROWS:
             self._spec_canon = next(iter(seen_canons))
         elif seen_canons:
@@ -722,13 +871,72 @@ class RxEngine:
                 cfg, pb, int(ltf_idx[i]), float(cfo[i]), int(trigs[i]),
                 float(snr_db[i]), float(rssi[i]), ss)
 
+    def _process_mu(self, dev: CF, ltf_idx, cfo, trigs, kinds, results,
+                    n_stream: int, snr_db, rssi):
+        """Batched MU-STA decode: one SIG-B pass per nsts tuple, then one
+        payload decode per exact (mcs, length, nsym) config (MU configs
+        take no canonical rung).  Two host readbacks a group: the SIG-B
+        bits, then each bucket's PSDU and SERVICE bits."""
+        groups: dict[tuple, list[int]] = {}
+        for i, ki in enumerate(kinds):
+            if ki is not None and ki[0] == "mu":
+                groups.setdefault(ki[1].nsts, []).append(i)
+        for nsts, idxs in groups.items():
+            n_total = sum(nsts)
+            own = sum(nsts[: self.mu_pos])
+            sel = np.zeros(_pad_batch(len(idxs)), np.int64)
+            sel[: len(idxs)] = idxs
+            sigb_b = _host(_mu_sigb_core(dev[0], self._rows(ltf_idx[sel]),
+                                         self._rows(cfo[sel]), n_total, own))
+            nltf, _, _, data_start = _mu_starts(n_total)
+            buckets: dict[PhyConfig, list[tuple[int, np.ndarray]]] = {}
+            for j, i in enumerate(idxs):
+                sigb = S.parse_vhtsigb(sigb_b[j], mu=True)
+                lsig = kinds[i][2]
+                n_data = lsig.nsym * 80 - (160 + 80 + 80 * nltf + 80)
+                nsym = max(n_data // 80, 0)
+                if (nsym == 0 or not sigb.ok or sigb.mcs > 8
+                        or not (1 <= sigb.length <= 4095)):
+                    continue
+                if ltf_idx[i] + data_start + 80 * nsym + 16 > n_stream:
+                    continue
+                cfg = PhyConfig(Fmt.VHT, sigb.mcs, nsts[self.mu_pos],
+                                sigb.length, ampdu=True, mu_nsym=nsym)
+                if cfg.nsym != nsym:
+                    continue
+                buckets.setdefault(cfg, []).append((i, sigb.crc))
+            for cfg, items in buckets.items():
+                sel = np.zeros(_pad_batch(len(items)), np.int64)
+                sel[: len(items)] = [i for i, _ in items]
+                out = _payload_core_mu(cfg, dev, self._rows(ltf_idx[sel]),
+                                       self._rows(cfo[sel]), n_total, own,
+                                       nrx=self.nrx)
+                psdu, service = _host(out["psdu"]), _host(out["service"])
+                for j, (i, crc) in enumerate(items):
+                    if not np.array_equal(service[j, 8:16], crc):
+                        continue
+                    r = RxResult(False, Fmt.VHT, cfg.mcs, cfg.nss,
+                                 int(ltf_idx[i]), float(cfo[i]),
+                                 trig=int(trigs[i]), snr_db=float(snr_db[i]),
+                                 rssi=float(rssi[i]))
+                    r.psdu = psdu[j].tobytes()
+                    r.mpdus = MAC.ampdu_deaggregate(r.psdu)
+                    r.ok = len(r.mpdus) > 0
+                    results[i] = r
+
     def _classify(self, lsig, ht_bits, vht_bits):
-        """-> (PhyConfig | None, ndp_nss | None).  Without MU-STA decode
-        an MU VHT-SIG-A is skipped here and the PPDU falls through to the
-        HT-SIG / L-SIG checks, as in the reference with ``mu_pos=None``."""
+        """-> (PhyConfig | ("mu", siga, lsig) | None, ndp_nss | None).
+        Without ``mu_pos`` an MU VHT-SIG-A is skipped here and the PPDU
+        falls through to the HT-SIG / L-SIG checks."""
         if lsig.mcs != 0:
             return PhyConfig(Fmt.L, lsig.mcs, 1, lsig.length), None
         siga = S.parse_vhtsiga(vht_bits)
+        if siga.ok and siga.mu and self.mu_pos is not None:
+            if self.mu_gid is not None and siga.group_id != self.mu_gid:
+                return None, None
+            if siga.nsts[self.mu_pos] == 0:
+                return None, None
+            return ("mu", siga, lsig), None
         if siga.ok and not siga.mu:
             nltf = int(T.N_LTF_OF_NSTS[siga.nss])
             n_data = lsig.nsym * 80 - (160 + 80 + 80 * nltf + 80)

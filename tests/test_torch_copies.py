@@ -11,10 +11,12 @@ import numpy as np
 import pytest
 
 from gr_ieee80211_tpu.gold import bits as JB, channel as JCH, mac as JMAC
+from gr_ieee80211_tpu.gold import rx as JRX, sounding as JSND
 from gr_ieee80211_tpu.gold import sig as JS, tx as JTX
 from gr_ieee80211_tpu.runtime import native as JNAT
 from gr_ieee80211_tpu.spec import params as JP, tables as JT
 from gr_ieee80211_tpu_torch.gold import bits as PB, channel as PCH, mac as PMAC
+from gr_ieee80211_tpu_torch.gold import rx as PRX, sounding as PSND
 from gr_ieee80211_tpu_torch.gold import sig as PS, tx as PTX
 from gr_ieee80211_tpu_torch.runtime import native as PNAT
 from gr_ieee80211_tpu_torch.spec import params as PP, tables as PT
@@ -73,7 +75,7 @@ def test_tables_have_the_same_names():
     assert _public(PT, True) == _public(JT, True)
     assert {c[0] for c in TABLE_CALLS} == set(_public(JT, True))
     for mod_j, mod_p in ((JB, PB), (JS, PS), (JMAC, PMAC), (JTX, PTX),
-                         (JCH, PCH), (JP, PP)):
+                         (JCH, PCH), (JP, PP), (JRX, PRX), (JSND, PSND)):
         names = set(_public(mod_j, True)) | set(_public(mod_j, False))
         have = set(_public(mod_p, True)) | set(_public(mod_p, False))
         assert names <= have, names - have
@@ -274,3 +276,171 @@ def test_channel_equal():
     _same(JCH.multipath_channel(x, taps), PCH.multipath_channel(x, taps))
     assert JCH.noise_amp_for_snr(0.5, 17.0) == PCH.noise_amp_for_snr(0.5, 17.0)
     assert JCH.REF_SIG_AMP == PCH.REF_SIG_AMP
+
+
+# ---------------------------------------------------------------------------
+# gold/sounding.py and gold/rx.py
+# ---------------------------------------------------------------------------
+
+def _chan(rng, shape):
+    return (rng.normal(size=shape) + 1j * rng.normal(size=shape)) / np.sqrt(2)
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_sounding_feedback_and_zf_equal(seed):
+    """NDP channel -> feedback rows -> ZF Q -> 64-bin grid, and the pilot
+    interpolation alone."""
+    rng = np.random.default_rng(60 + seed)
+    ndp = _chan(rng, (1, 2, 64))
+    fj, fp = JSND.feedback_from_ndp(ndp), PSND.feedback_from_ndp(ndp)
+    _same(fj, fp)
+    assert fp.shape == (1, 2, 56)
+    h52 = _chan(rng, (2, 52))
+    _same(JSND.interp_pilot_tones(h52), PSND.interp_pilot_tones(h52))
+    rows = np.stack([fp[0], PSND.feedback_from_ndp(_chan(rng, (1, 2, 64)))[0]])
+    qj, qp = JSND.zf_q(rows), PSND.zf_q(rows)
+    _same(qj, qp)
+    _same(JSND.q_to_grid(qj), PSND.q_to_grid(qp))
+    assert PSND.q_to_grid(qp).shape == (64, 2, 2)
+
+
+@pytest.mark.parametrize("m,n,codebook", [(2, 1, 0), (2, 2, 1), (3, 2, 0),
+                                          (4, 2, 1)])
+def test_sounding_givens_equal(m, n, codebook):
+    """Givens compression, decompression, the angle order and the bit
+    packing of a seeded unitary V."""
+    rng = np.random.default_rng(70 + 10 * m + n)
+    u, _, _ = np.linalg.svd(_chan(rng, (m, n)), full_matrices=False)
+    v = u[:, :n]
+    cj, cp = JSND.givens_compress(v, codebook), PSND.givens_compress(v, codebook)
+    _same(cj, cp)
+    vals, types = cp
+    assert JSND.angle_order(m, n) == PSND.angle_order(m, n) == types
+    _same(JSND.givens_decompress(vals, types, m, n, codebook),
+          PSND.givens_decompress(vals, types, m, n, codebook))
+    blob = PSND.pack_bf_report(vals, types, codebook)
+    assert blob == JSND.pack_bf_report(vals, types, codebook)
+    assert (JSND.unpack_bf_report(blob, types, codebook)
+            == PSND.unpack_bf_report(blob, types, codebook) == vals)
+
+
+@pytest.mark.parametrize("group,codebook", [(1, 0), (1, 1), (2, 1), (4, 0)])
+def test_sounding_mgmt_frame_equal(group, codebook):
+    """The VHT compressed beamforming action body and its parser."""
+    rng = np.random.default_rng(80 + group + codebook)
+    row = _chan(rng, (2, 56))
+    v56 = (row.conj() / np.linalg.norm(row, axis=0, keepdims=True)
+           ).T[:, :, None]
+    kw = dict(group=group, codebook=codebook, token=5)
+    bj = JSND.mgmt_vht_bf_body(v56, [21.3], **kw)
+    bp = PSND.mgmt_vht_bf_body(v56, [21.3], **kw)
+    assert bj == bp
+    _same(JSND.parse_mgmt_vht_bf(bj), PSND.parse_mgmt_vht_bf(bp))
+    assert JSND.BFFB_SCIDX_20 == PSND.BFFB_SCIDX_20
+
+
+def _mu_waveform(rng, h_sta):
+    m0 = PMAC.qos_data_frame(bytes(rng.integers(0, 256, 90, dtype=np.uint8)),
+                             *ADDR, 5)
+    m1 = PMAC.qos_data_frame(bytes(rng.integers(0, 256, 60, dtype=np.uint8)),
+                             *ADDR, 6)
+    a0, a1 = PMAC.ampdu_aggregate_vht([m0]), PMAC.ampdu_aggregate_vht([m1])
+    mu = PP.mu_config([PP.PhyConfig(PP.Fmt.VHT, 3, 1, len(a0), ampdu=True),
+                       PP.PhyConfig(PP.Fmt.VHT, 2, 1, len(a1), ampdu=True)],
+                      group_id=2)
+    h_rows = np.repeat(np.stack(h_sta)[:, 0][:, :, None], 56, axis=2)
+    q = PSND.q_to_grid(PSND.zf_q(h_rows))
+    return PTX.tx_waveform_mu(mu, [a0, a1], q), (m0, m1)
+
+
+def _same_packets(pj, pp):
+    assert len(pj) == len(pp)
+    for a, b in zip(pj, pp):
+        da, db = dataclasses.asdict(a), dataclasses.asdict(b)
+        assert da.keys() == db.keys()
+        for k in da:
+            if k == "fmt":
+                assert (da[k] is None) == (db[k] is None)
+                assert da[k] is None or int(da[k]) == int(db[k])
+            elif da[k] is None:
+                assert db[k] is None
+            else:
+                _same(da[k], db[k])
+
+
+@pytest.mark.parametrize("case", ["legacy", "ht", "vht", "ht2x2", "ndp",
+                                  "mu0", "mu1"])
+def test_gold_receive_equal(case):
+    """``receive`` on a seeded noisy stream of each kind (L, HT, VHT, 2x2
+    HT, a 2-stream NDP, an MU PPDU at each station): every field of every
+    packet equal, floats and the NDP channel included."""
+    rng = np.random.default_rng(sum(map(ord, case)))
+    mu_pos = None
+    if case in ("mu0", "mu1"):
+        mu_pos = int(case[-1])
+        h_sta = [_chan(rng, (1, 2)) for _ in range(2)]
+        wave, mpdus = _mu_waveform(rng, h_sta)
+        wave = PCH.mimo_channel(wave, h_sta[mu_pos])
+    elif case == "ndp":
+        wave = PCH.mimo_channel(
+            PTX.tx_waveform(PP.PhyConfig(PP.Fmt.VHT, 0, 2, 0, ampdu=True),
+                            b"", group_id=0, partial_aid=0), _chan(rng, (1, 2)))
+    else:
+        fmt, mcs, nss = {"legacy": (0, 5, 1), "ht": (1, 3, 1),
+                         "vht": (2, 4, 1), "ht2x2": (1, 11, 2)}[case]
+        psdu = _payload(rng, fmt, 80)
+        _, cp = _cfgs(fmt, mcs, nss, len(psdu))
+        kw = dict(group_id=0, partial_aid=0) if fmt == 2 else {}
+        wave = PTX.tx_waveform(cp, psdu, **kw)
+        if nss == 2:
+            wave = PCH.mimo_channel(wave, np.eye(2) + 0.3 * _chan(rng, (2, 2)))
+    stream = PCH.frame_stream(wave, 1.0, 230.0, num=2, gap=900)
+    stream = PCH.awgn(stream, 0.012 / 10 ** (30 / 20), rng)
+    pj = JRX.receive(stream, mu_pos=mu_pos)
+    pp = PRX.receive(stream, mu_pos=mu_pos)
+    _same_packets(pj, pp)
+    assert len(pp) == 2 and all(p.ok for p in pp)
+    if mu_pos is not None:
+        assert all(p.mu and p.mpdus == [mpdus[mu_pos]] for p in pp)
+    if case == "ndp":
+        assert all(p.is_ndp and p.ndp_chan.shape == (1, 2, 64) for p in pp)
+    assert PRX.receive(stream, mu_pos=mu_pos, max_packets=1)[0].start \
+        == pp[0].start
+
+
+def test_gold_rx_helpers_equal():
+    """Every public helper of ``gold.rx`` on seeded inputs."""
+    rng = np.random.default_rng(91)
+    cp = PP.PhyConfig(PP.Fmt.VHT, 2, 1, 60, ampdu=True)
+    wave = PTX.tx_waveform(cp, bytes(60), group_id=0, partial_aid=0)
+    x = PCH.awgn(PCH.frame_stream(wave, 1.0, 400.0, gap=600), 1e-3, rng)[0]
+    mj, mp = JRX.stf_metric(x), PRX.stf_metric(x)
+    _same(mj, mp)
+    trig = PRX.find_triggers(mp[0])
+    assert trig == JRX.find_triggers(mj[0]) and len(trig) >= 1
+    sj, sp = JRX.ltf_sync(x, trig[0] + 80), PRX.ltf_sync(x, trig[0] + 80)
+    assert sj == sp and sp is not None
+    assert PRX.ltf_sync(x[:100], 0) is None
+    li = sp[0]
+    c0 = PRX.coarse_cfo(x, trig[0])
+    assert c0 == JRX.coarse_cfo(x, trig[0])
+    assert JRX.fine_cfo(x, li, c0) == PRX.fine_cfo(x, li, c0)
+    _same(JRX.derotate(x, li, 500, 400.0), PRX.derotate(x, li, 500, 400.0))
+    _same(JRX.fft_sym(x[li: li + 64]), PRX.fft_sym(x[li: li + 64]))
+    _same(JRX.sym_window(x, li + 128), PRX.sym_window(x, li + 128))
+    _same(JRX.legacy_chan_est(x, li), PRX.legacy_chan_est(x, li))
+    eq = _chan(rng, (3, 52))
+    for nb in (1, 2, 4, 6, 8):
+        _same(JRX.llr_demap(eq, nb), PRX.llr_demap(eq, nb))
+    p, e = _chan(rng, (4,)), _chan(rng, (4,))
+    assert JRX.pilot_phase(p, e) == PRX.pilot_phase(p, e)
+    assert PRX.pilot_phase(np.zeros(4, complex), e) == 1.0
+    grids = _chan(rng, (2, 2, 64))
+    _same(JRX.nl_chan_est(grids, 2, JP.Fmt.VHT),
+          PRX.nl_chan_est(grids, 2, PP.Fmt.VHT))
+    _same(JRX.nl_pilot_chan(grids), PRX.nl_pilot_chan(grids))
+    y, h = _chan(rng, (2, 52)), _chan(rng, (2, 2, 52))
+    _same(JRX.zf_equalize(y, h), PRX.zf_equalize(y, h))
+    _same(JRX.zf_equalize(y[:1], h[:1, :1]), PRX.zf_equalize(y[:1], h[:1, :1]))
+    assert [f.name for f in dataclasses.fields(JRX.RxPacket)] == \
+        [f.name for f in dataclasses.fields(PRX.RxPacket)]

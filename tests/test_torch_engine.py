@@ -32,7 +32,7 @@ torch.set_num_threads(2)
 EXACT = ("ok", "fmt", "mcs", "nss", "trig", "psdu", "mpdus", "is_ndp")
 
 
-def assert_same_results(ref, got, exact=EXACT):
+def assert_same_results(ref, got, exact=EXACT, moved_cfo_hz=25.0):
     assert len(ref) == len(got), (len(ref), len(got))
     n_moved = 0
     for a, b in zip(ref, got):
@@ -43,7 +43,7 @@ def assert_same_results(ref, got, exact=EXACT):
         if moved:
             assert abs(a.start - b.start) <= 2, (a.start, b.start)
             n_moved += 1
-        assert abs(a.cfo_hz - b.cfo_hz) < (25.0 if moved else 0.01), \
+        assert abs(a.cfo_hz - b.cfo_hz) < (moved_cfo_hz if moved else 0.01), \
             (a.cfo_hz, b.cfo_hz)
         assert abs(a.rssi - b.rssi) <= 1e-2 * abs(a.rssi), (a.rssi, b.rssi)
         assert abs(a.snr_db - b.snr_db) < 0.02, (a.snr_db, b.snr_db)
@@ -158,10 +158,12 @@ def test_engine_vht_2ss_on_one_antenna():
 
 
 def test_engine_options_and_device():
-    """MU-STA decode is not ported; the default device is the card and
-    raises without one; unknown ingest modes raise."""
-    with pytest.raises(NotImplementedError):
-        PRX.RxEngine(mu_pos=0, device="cpu")
+    """``mu_pos`` / ``mu_gid`` are kept for the MU-STA decode; the default
+    device is the card and raises without one; unknown ingest modes
+    raise."""
+    eng = PRX.RxEngine(mu_pos=0, mu_gid=2, device="cpu")
+    assert (eng.mu_pos, eng.mu_gid) == (0, 2)
+    assert PRX.RxEngine(device="cpu").mu_pos is None
     with pytest.raises(ValueError):
         PRX.RxEngine(ingest="f16", device="cpu")
     if not torch.cuda.is_available():

@@ -38,7 +38,8 @@ def _forbidden(module: str) -> bool:
 
 def test_port_has_the_expected_modules():
     mods = _port_modules()
-    for want in ("models.rx", "ops.viterbi_kernels", "ops.fastdecode",
+    for want in ("models.rx", "models.tx", "gold.rx", "gold.sounding",
+                 "ops.viterbi_kernels", "ops.fastdecode",
                  "spec.params", "spec.tables", "gold.bits", "gold.sig",
                  "gold.mac", "gold.tx", "gold.channel", "runtime.native"):
         assert f"{PORT}.{want}" in mods
