@@ -66,7 +66,27 @@ Phases (any failure exits non-zero before the final line):
    id decodes nothing and a wrong-MCS config counts 0 ok; (g') the same
    PPDUs at an SNR where the syndrome gate sends rows to the Viterbi: K1
    and K2 launch on the MU path, and ``rx_chain_ok_mu`` on the card
-   equals the CPU's on the first 64 packets.
+   equals the CPU's on the first 64 packets;
+10. streaming runtime and daemons (h): (h1) engine (b)'s 16-block stream
+   written in 1<<16-sample chunks with backpressure into a native
+   ``IqRing(1<<23)`` -> ``RxStreamer`` -> ``RxEngine`` -> ``PhyRxReporter``
+   -> a MAC listener on its own thread: every sent packet decoded exactly
+   once, one byte-equal [fmt, len, MPDU, mcs] datagram per MPDU and one
+   channel report per NDP, ms/block from the first write to the last
+   owned block beside engine (b)'s; (h2) the rx.grc/tx.grc loopback: 33
+   MAC requests (L MCS0-7, HT MCS0-7, VHT MCS0-8, 100-1500 B) and an NDP
+   -> ``PhyTxServer(device_tx=True)`` on the card -> ``TxStreamer`` ->
+   cf32 UDP -> ``UdpIngest`` -> ``RxStreamer`` -> the listener, then
+   VHT 1-SS and 2-SS bursts on two antennas: every MPDU back byte-equal,
+   every ingest counting every sample sent and dropping none; (h3)
+   ``tools_torch/cmu_demo.py --device cuda`` prints "closed loop:
+   SUCCESS"; (h4) ``tools_torch/rx_daemon.py --file`` (the first 4
+   blocks of (h1)'s stream) ``--once --device cuda`` counts every packet
+   of those blocks ok.  K1/K2 must launch under the streamer;
+11. K1/K2 held to their twins at every (B, T) they launched at in the
+   engine runs (a)-(c) and under the streamer ((h1), (h2)): the shapes
+   the buckets of the canonical configs and the batch ladder give them,
+   recorded by the wrappers where they launch.
 
 The line before the last is a JSON object describing each kernel; the
 last is ``{"ok": true, "device": {...}}``.  Imports neither JAX nor the
@@ -607,12 +627,13 @@ def check_sent(results, sent, what):
 
 def phase_engine(torch, CL, PRX, bench, chain_ok):
     """The general engine at full size; returns per-kernel launch counts
-    summed over its runs (counts zeroed before each, read after)."""
+    summed over its runs (counts zeroed before each, read after), the
+    timing of (b) and K1/K2's launch shapes."""
     from gr_ieee80211_tpu_torch.spec.params import Fmt
-    launches = {}
+    launches, shapes = {}, set()
 
     def counted(fn, what):
-        out, counts = counted_run(torch, CL, fn, f"engine {what}")
+        out, counts = counted_run(torch, CL, fn, f"engine {what}", shapes)
         for k, v in counts.items():
             launches[k] = launches.get(k, 0) + v
         return out
@@ -683,7 +704,7 @@ def phase_engine(torch, CL, PRX, bench, chain_ok):
     log(f"engine: kernel launches in the engine runs: {launches}")
     check(launches["acs_sweep"] > 0 and launches["traceback_sweep"] > 0,
           f"the engine runs never launched K1/K2: {launches}")
-    return launches, timing
+    return launches, timing, shapes
 
 
 def phase_engine_reference(torch, PRX):
@@ -771,14 +792,18 @@ def add_noise(torch, CF, base, rms, snr_db, gen):
     return CF((base.re + nz[0])[None], (base.im + nz[1])[None])
 
 
-def counted_run(torch, CL, fn, what):
+def counted_run(torch, CL, fn, what, shapes=None):
     """``fn()`` with the kernels' launch counts zeroed before and read
-    after: (result, counts)."""
+    after: (result, counts).  K1/K2's launch shapes (B, T) go into the
+    set ``shapes`` when one is given."""
     CL.reset_launch_counts()
     out = fn()
     torch.cuda.synchronize()
     counts = CL.launch_counts()
     log(f"{what}: kernel launches {counts}")
+    if shapes is not None:
+        got = CL.launch_shapes()
+        shapes |= got["acs_sweep"] | got["traceback_sweep"]
     return out, counts
 
 
@@ -1094,6 +1119,382 @@ def phase_mu_loop(torch, VK, CL, PRX, PTX, CF, from_numpy_cf, smi):
     return launches, out, errs
 
 
+# ---------------------------------------------------------------------------
+# streaming runtime and daemons
+# ---------------------------------------------------------------------------
+
+RING = 1 << 23                          # rx_daemon's ring, in samples
+CHUNK = 1 << 16                         # rx_daemon's file-replay writes
+
+
+class MacListener:
+    """The MAC side of the PHY->MAC wire: a socket with a large receive
+    buffer drained on its own thread, so a slow reader drops nothing."""
+
+    def __init__(self):
+        import socket
+        import threading
+        from gr_ieee80211_tpu_torch.runtime.udp_phy import parse_phy_to_mac
+        self._parse = parse_phy_to_mac
+        self.sock = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+        for opt in (getattr(socket, "SO_RCVBUFFORCE", None),
+                    socket.SO_RCVBUF):
+            try:
+                self.sock.setsockopt(socket.SOL_SOCKET, opt, 64 << 20)
+                break
+            except (OSError, TypeError):
+                continue
+        self.sock.bind(("127.0.0.1", 0))
+        self.sock.settimeout(0.1)
+        self.port = self.sock.getsockname()[1]
+        self.got: list = []
+        self._stop = threading.Event()
+        self._th = threading.Thread(target=self._run, daemon=True)
+        self._th.start()
+
+    def _run(self):
+        import socket
+        while not self._stop.is_set():
+            try:
+                data, _ = self.sock.recvfrom(65536)
+            except socket.timeout:
+                continue
+            self.got.append(self._parse(data))
+
+    def wait_for(self, n: int, timeout: float = 30.0) -> list:
+        deadline = time.time() + timeout
+        while len(self.got) < n and time.time() < deadline:
+            time.sleep(0.02)
+        time.sleep(0.2)                  # a surplus datagram would show
+        return list(self.got)
+
+    def close(self):
+        self._stop.set()
+        self._th.join(timeout=5)
+        self.sock.close()
+
+
+class ClockedEngine:
+    """The engine under the streamer, with the host clock read after each
+    block it finishes and each block's kind ("spec" when the speculative
+    one-pass decode ran; the streamer duck-types begin/finish_process)."""
+
+    def __init__(self, eng):
+        self.eng = eng
+        self.done: list[float] = []
+        self.kinds: list[str] = []
+
+    def begin_process(self, view):
+        handle = self.eng.begin_process(view)
+        self.kinds.append(handle[2][0])
+        return handle
+
+    def finish_process(self, handle):
+        res = self.eng.finish_process(handle)
+        self.done.append(time.perf_counter())
+        return res
+
+
+def check_reports(got, sent, what):
+    """The listener's datagrams are one [fmt, len, MPDU, mcs] per MPDU
+    of each sent data packet, byte-equal, and one (2, 64) channel report
+    per NDP; returns (data datagrams, NDP reports)."""
+    from gr_ieee80211_tpu_torch.runtime.udp_phy import F_NDP_CHAN
+    data = sorted((f, p, m) for f, p, m in got if f != F_NDP_CHAN)
+    chans = [c for f, c, _ in got if f == F_NDP_CHAN]
+    want = sorted((int(f["fmt"]), mp, f["mcs"]) for _, f in sent
+                  if not f["is_ndp"] for mp in f["mpdus"])
+    n_ndp = sum(f["is_ndp"] for _, f in sent)
+    check(data == want, f"{what}: {len(data)} MPDU datagrams, "
+          f"{len(want)} expected, or their bytes, fmt or mcs differ")
+    check(len(chans) == n_ndp and all(
+        c.shape == (2, 64) and np.isfinite(c).all() for c in chans),
+        f"{what}: {len(chans)} NDP reports for {n_ndp} NDPs")
+    return len(data), len(chans)
+
+
+def stream_run(streamer, rings, feed, what, timeout=600.0):
+    """Start the streamer, run ``feed()``, drain and join it; fails on a
+    thread error.  Returns what ``feed`` returned."""
+    streamer.start()
+    out = feed()
+    streamer.stop(drain=True, timeout=timeout)
+    streamer.join(timeout=timeout)
+    check(not streamer.is_alive(), f"{what}: the streamer did not stop")
+    check(streamer.error is None, f"{what}: the streamer died: "
+          f"{streamer.error!r}")
+    for r in rings:
+        r.close()
+    return out
+
+
+def replay(NAT, RS, U, eng, stream, what, mac=None, on_result=None):
+    """``rx_daemon.py --file``'s replay: the stream written in CHUNK
+    pieces with backpressure into an ``IqRing(RING)`` -> ``RxStreamer``
+    over ``eng`` (a ``ClockedEngine``) -> ``PhyRxReporter`` to ``mac``
+    when one is given; drains and joins.  Returns (streamer, host clock
+    at the first write)."""
+    ring = NAT.IqRing(RING)
+    streamer = RS.RxStreamer(
+        ring, eng, block_len=BLOCK, halo=HALO,
+        reporter=None if mac is None else U.PhyRxReporter(port=mac.port),
+        on_result=on_result)
+
+    def feed():
+        t_first, off = time.perf_counter(), 0
+        while off < len(stream):
+            off += ring.write(stream[off: off + CHUNK])
+            time.sleep(0.001)
+        return t_first
+
+    return streamer, stream_run(streamer, [ring], feed, what)
+
+
+def phase_replay(torch, CL, PRX, NAT, RS, U, engine_ms, smi, shapes):
+    """(h1) engine (b)'s daemon stream replayed through IqRing ->
+    RxStreamer -> RxEngine -> PhyRxReporter -> a MAC listener."""
+    stream, sent = daemon_stream(np.random.default_rng(23))
+    eng = ClockedEngine(PRX.RxEngine(nrx=1, device="cuda"))
+    results = []
+    mac = MacListener()
+    (streamer, t_first), counts = counted_run(
+        torch, CL, lambda: replay(NAT, RS, U, eng, stream, "(h1)", mac,
+                                  results.append),
+        "stream (h1) replay", shapes)
+    check_sent(results, sent, "stream (h1)")
+    check(streamer.n_packets == streamer.n_ok == len(sent),
+          f"(h1): streamer counted {streamer.n_ok}/{streamer.n_packets}")
+    n_data, n_ndp = check_reports(
+        mac.wait_for(sum(len(f["mpdus"]) or 1 for _, f in sent)), sent,
+        "stream (h1)")
+    mac.close()
+    secs = eng.done[N_BLOCKS - 1] - t_first
+    per_block = np.diff([t_first] + eng.done[:N_BLOCKS]) * 1e3
+    n_spec = eng.kinds[:N_BLOCKS].count("spec")
+    log(f"stream (h1): ms per block {np.round(per_block, 1).tolist()}, "
+        f"kinds {eng.kinds[:N_BLOCKS]}")
+    out = {"h1_ms_per_block": 1e3 * secs / N_BLOCKS,
+           "h1_speculative_blocks": n_spec,
+           "h1_msamples_per_s": N_BLOCKS * BLOCK / secs / 1e6,
+           "h1_engine_b_ms_per_block": engine_ms,
+           "h1_packets": len(sent), "h1_ok": streamer.n_ok,
+           "h1_blocks_run": streamer.n_blocks,
+           "h1_datagrams": n_data + n_ndp, "h1_ndp_reports": n_ndp}
+    log(f"stream (h1): {len(sent)} packets in {N_BLOCKS} blocks of {BLOCK} + "
+        f"{HALO} through IqRing -> RxStreamer -> RxEngine: {streamer.n_ok} "
+        f"ok, each decoded once; {n_data} MPDU datagrams and {n_ndp} NDP "
+        f"reports received byte-equal; {out['h1_ms_per_block']:.1f} ms/block "
+        f"({out['h1_msamples_per_s']:.2f} Msamples/s) from the first write to "
+        f"the last owned block, engine (b) in this run {engine_ms:.1f} "
+        f"ms/block; {streamer.n_blocks - N_BLOCKS} drain block(s); {smi}")
+    return counts, out, stream, sent
+
+
+def loopback_requests(rng):
+    """(datagrams, sent) of the MAC side: L MCS0-7, HT MCS0-7 and VHT
+    MCS0-8 once each plus 8 more drawn at random, 100-1500 B, in the
+    reference's 5-byte-header format, and one VHT NDP request."""
+    from gr_ieee80211_tpu_torch.gold import mac
+    from gr_ieee80211_tpu_torch.spec.params import Fmt
+    kinds = [(f, m) for f, n in ((Fmt.L, 8), (Fmt.HT, 8), (Fmt.VHT, 9))
+             for m in range(n)]
+    kinds += [kinds[int(i)] for i in rng.integers(0, len(kinds), 8)]
+    reqs, sent = [], []
+    for k, (fmt, mcs) in enumerate(kinds):
+        mpdu = mac.qos_data_frame(bytes(rng.integers(
+            0, 256, int(rng.integers(100, 1501)), dtype=np.uint8)),
+            *ADDR, k)
+        psdu = mac.ampdu_aggregate_vht([mpdu]) if fmt == Fmt.VHT else mpdu
+        reqs.append(bytes([int(fmt), mcs, 1, len(psdu) & 0xFF,
+                           len(psdu) >> 8]) + psdu)
+        sent.append((k, dict(fmt=fmt, mcs=mcs, mpdus=[mpdu], is_ndp=False)))
+    reqs.append(b"\x02\x00\x02\x00\x00")
+    sent.append((len(kinds), dict(fmt=Fmt.VHT, mcs=0, mpdus=[], is_ndp=True)))
+    return reqs, sent
+
+
+def loopback(torch, PRX, NAT, RS, U, reqs, sent, nrx, what):
+    """MAC -> PhyTxServer(device_tx on the card) -> TxStreamer -> cf32 UDP
+    -> UdpIngest (one per antenna) -> rings -> RxStreamer -> RxEngine ->
+    PhyRxReporter -> the MAC listener; returns the ingest statistics."""
+    import socket
+    rings = [NAT.IqRing(RING) for _ in range(nrx)]
+    ings = [NAT.UdpIngest(r, port=0) for r in rings]
+    mac = MacListener()
+    streamer = RS.RxStreamer(rings, PRX.RxEngine(nrx=nrx, device="cuda"),
+                             block_len=BLOCK, halo=HALO,
+                             reporter=U.PhyRxReporter(port=mac.port))
+    sink = RS.TxStreamer(udp_addr=[("127.0.0.1", i.port) for i in ings],
+                         gap=1200, amp=0.2)
+    srv = U.PhyTxServer(sink=sink, port=0, device_tx=True, device="cuda")
+
+    def feed():
+        srv.start()
+        tx = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+        for d in reqs:
+            tx.sendto(d, ("127.0.0.1", srv.port))
+            time.sleep(0.002)
+        tx.close()
+        deadline = time.time() + 300
+        while sink.n_bursts < len(reqs) and time.time() < deadline:
+            time.sleep(0.02)
+        check(sink.n_bursts == len(reqs),
+              f"{what}: {sink.n_bursts} of {len(reqs)} bursts synthesized")
+        while (min(i.stats["samples"] for i in ings) < sink.stream_pos
+               and time.time() < deadline):
+            time.sleep(0.02)
+        srv.stop()
+        srv.join(timeout=10)
+        sink.close()
+        for i in ings:                   # the drain's silence is the only
+            i.stop()                     # writer from here on
+        return [i.stats for i in ings]
+
+    stats = stream_run(streamer, rings, feed, what)
+    check(all(s["samples"] == sink.stream_pos and s["dropped"] == 0
+              for s in stats),
+          f"{what}: ingest {stats}, {sink.stream_pos} samples sent per "
+          "antenna")
+    n_data, n_ndp = check_reports(mac.wait_for(len(sent)), sent, what)
+    mac.close()
+    log(f"{what}: {len(reqs)} MAC requests -> {sink.n_bursts} bursts on "
+        f"{nrx} antenna(s) -> {n_data} MPDUs back byte-equal with fmt and "
+        f"mcs, {n_ndp} NDP report(s); ingest {stats}")
+    return stats, n_data + n_ndp
+
+
+def phase_loopback(torch, CL, PRX, NAT, RS, U, shapes):
+    """(h2) the rx.grc/tx.grc loopback, MAC to MAC, at 1 and 2 antennas."""
+    from gr_ieee80211_tpu_torch.gold import mac
+    from gr_ieee80211_tpu_torch.spec.params import Fmt
+    rng = np.random.default_rng(37)
+    reqs, sent = loopback_requests(rng)
+    (st1, n1), c1 = counted_run(
+        torch, CL, lambda: loopback(torch, PRX, NAT, RS, U, reqs, sent, 1,
+                                    "stream (h2) 1 antenna"),
+        "stream (h2) 1 antenna", shapes)
+    # tests/test_streaming2x2.py's traffic, widened: VHT 2-SS bursts carry
+    # both antennas, 1-SS bursts zero-fill antenna 1 (pad2)
+    reqs2, sent2 = [], []
+    for k, (mcs, nss) in enumerate(((4, 2), (5, 1), (0, 2), (8, 1), (7, 2),
+                                    (2, 1))):
+        mpdu = mac.qos_data_frame(bytes(rng.integers(
+            0, 256, int(rng.integers(100, 1501)), dtype=np.uint8)),
+            *ADDR, 100 + k)
+        psdu = mac.ampdu_aggregate_vht([mpdu])
+        reqs2.append(bytes([2, mcs, nss, len(psdu) & 0xFF, len(psdu) >> 8])
+                     + psdu)
+        sent2.append((k, dict(fmt=Fmt.VHT, mcs=mcs, mpdus=[mpdu],
+                              is_ndp=False)))
+    (st2, n2), c2 = counted_run(
+        torch, CL, lambda: loopback(torch, PRX, NAT, RS, U, reqs2, sent2, 2,
+                                    "stream (h2) 2 antennas"),
+        "stream (h2) 2 antennas", shapes)
+    counts = {k: c1[k] + c2[k] for k in c1}
+    out = {"h2_requests": len(reqs) + len(reqs2), "h2_datagrams": n1 + n2,
+           "h2_ingest_dropped": sum(s["dropped"] for s in st1 + st2),
+           "h2_ingest_samples": [s["samples"] for s in st1 + st2]}
+    return counts, out
+
+
+def phase_cmu_demo():
+    """(h3) tools_torch/cmu_demo.py on the card, in this process."""
+    import contextlib
+    import io
+    from tools_torch import cmu_demo
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cmu_demo.main(["--device", "cuda"])
+    text = buf.getvalue()
+    for line in text.splitlines():
+        log(f"  cmu_demo: {line}")
+    check(rc == 0 and "closed loop: SUCCESS" in text,
+          f"(h3) cmu_demo returned {rc}")
+    log("stream (h3): MU closed loop over real sockets, closed loop: SUCCESS")
+
+
+def phase_daemon(stream, sent):
+    """(h4) the user's entry point: rx_daemon.py --file ... --once on the
+    first 4 blocks of (h1)'s stream, reporting to a MAC listener."""
+    import re
+    root = Path(__file__).resolve().parent
+    n_own = 4 * BLOCK
+    first = [(s, f) for s, f in sent if s < n_own]
+    cut = min(s for s, _ in sent if s >= n_own) - 100
+    path = root / "build" / "chip_smoke" / "daemon_4_blocks.bin"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    stream[:cut].tofile(path)
+    mac = MacListener()
+    try:
+        tic = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "tools_torch/rx_daemon.py", "--file", str(path),
+             "--once", "--device", "cuda", "--report-port", str(mac.port)],
+            cwd=root, capture_output=True, text=True, timeout=600)
+        secs = time.perf_counter() - tic
+        for line in out.stderr.splitlines()[-6:]:
+            log(f"  rx_daemon: {line}")
+        m = re.search(r"done: (\d+) blocks, (\d+)/(\d+) packets ok",
+                      out.stderr)
+        check(out.returncode == 0 and m is not None,
+              f"(h4) rx_daemon exited {out.returncode}")
+        n_ok, n_pk = int(m.group(2)), int(m.group(3))
+        check(n_ok == n_pk == len(first),
+              f"(h4) rx_daemon: {n_ok}/{n_pk} ok, {len(first)} sent")
+        n_data, n_ndp = check_reports(
+            mac.wait_for(sum(len(f["mpdus"]) or 1 for _, f in first)),
+            first, "stream (h4)")
+    finally:
+        mac.close()
+        path.unlink(missing_ok=True)
+    log(f"stream (h4): rx_daemon.py --file ({cut} samples) --once --device "
+        f"cuda: {m.group(0)}, {n_data + n_ndp} datagrams, {secs:.1f} s with "
+        "the process start")
+    return {"h4_packets": len(first), "h4_ok": n_ok,
+            "h4_datagrams": n_data + n_ndp}
+
+
+def phase_streaming(torch, CL, PRX, engine_ms, smi):
+    """(h) the streaming runtime and daemons on the card; returns the
+    kernels' launch counts of (h1) + (h2) and K1/K2's launch shapes there
+    (the streaming numbers go to a log line)."""
+    from gr_ieee80211_tpu_torch.runtime import native as NAT
+    from gr_ieee80211_tpu_torch.runtime import streaming as RS
+    from gr_ieee80211_tpu_torch.runtime import udp_phy as U
+    check(NAT.available(), "(h): the native runtime (libphyrt) did not load")
+    shapes = set()
+    c1, out, stream, sent = phase_replay(torch, CL, PRX, NAT, RS, U,
+                                         engine_ms, smi, shapes)
+    c2, out2 = phase_loopback(torch, CL, PRX, NAT, RS, U, shapes)
+    phase_cmu_demo()
+    out.update(out2)
+    out.update(phase_daemon(stream, sent))
+    launches = {k: c1[k] + c2[k] for k in c1}
+    check(launches["acs_sweep"] > 0 and launches["traceback_sweep"] > 0,
+          f"(h): the streamer never launched K1/K2: {launches}")
+    out["card"] = smi
+    log(json.dumps({"streaming": out}))
+    return launches, shapes
+
+
+def hold_at_path_shapes(torch, VK, paths: dict, held: set):
+    """K1/K2 against their twins (``hold_k1_k2``) at each (B, T) that a
+    path launched them at and no earlier phase held them at; ``paths``
+    maps a path's name to its set of shapes.  Returns (max errors, the
+    sorted [B, T] list of each path)."""
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(67)
+    errs = [0.0, 0.0]
+    for b, t in sorted(set().union(*paths.values()) - held):
+        tic = time.perf_counter()
+        e = hold_k1_k2(torch, VK, llr_pairs(torch, rng, dev, b, t),
+                       f"the path shape T={t} B={b}")
+        errs = [max(x, y) for x, y in zip(errs, e)]
+        log(f"kernels: held at T={t} B={b} in "
+            f"{time.perf_counter() - tic:.2f} s")
+    return errs, {p: [list(bt) for bt in sorted(v)] for p, v in paths.items()}
+
+
 def ptxas_summary(build_log: str) -> dict:
     """``nvcc -Xptxas -v`` output -> {kernel: {registers, smem_bytes,
     spill_bytes}} (spill stores + loads)."""
@@ -1179,12 +1580,25 @@ def main() -> int:
     bench = bench_streams()
     launches, chain_ok = phase_chain(torch, VK, CL, PRX, from_numpy_cf, bench)
     phase_reference(torch, PRX, from_numpy_cf, bench)
-    engine_launches, _ = phase_engine(torch, CL, PRX, bench, chain_ok)
+    engine_launches, engine_timing, engine_shapes = phase_engine(
+        torch, CL, PRX, bench, chain_ok)
     phase_engine_reference(torch, PRX)
     tx_launches, tx_su = phase_tx_su(torch, CL, PRX, PTX, CF, bench, smi)
     tx_mu = phase_tx_mu(torch, PTX, from_numpy_cf, smi)
     mu_launches, mu_out, mu_errs = phase_mu_loop(torch, VK, CL, PRX, PTX, CF,
                                                  from_numpy_cf, smi)
+    # engine (b) with speculation, as the streamer's engine runs
+    engine_ms = 1e3 * float(np.mean(engine_timing[True])) / N_BLOCKS
+    stream_launches, stream_shapes = phase_streaming(torch, CL, PRX,
+                                                     engine_ms, smi)
+    # K1/K2 at every shape the engine and the streamer launched them at
+    # (the chain's and the MU path's shapes were held above)
+    held = {(B, T_KERNEL), (B_BUCKET, T_KERNEL)} | {
+        (h["B"], h["T"]) for h in mu_out["mu_k1_k2_held_at"]}
+    path_errs, held_at = hold_at_path_shapes(
+        torch, VK, {"engine": engine_shapes, "stream": stream_shapes}, held)
+    check(stream_shapes and engine_shapes,
+          "no K1/K2 launch shapes recorded on the engine or stream path")
     check_self_contained()
     log(json.dumps({"paths": {**tx_su, **tx_mu, **mu_out, "card": smi}}))
 
@@ -1193,15 +1607,19 @@ def main() -> int:
         k["on_path"] = name in ("acs_sweep", "traceback_sweep")
         if k["on_path"]:                # also held at the MU path's shapes
             k["max_abs_err"] = max(k["max_abs_err"],
-                                   mu_errs[name == "traceback_sweep"])
+                                   mu_errs[name == "traceback_sweep"],
+                                   path_errs[name == "traceback_sweep"])
             k["held_at_mu"] = mu_out["mu_k1_k2_held_at"]
+            k["held_at_engine"] = held_at["engine"]
+            k["held_at_stream"] = held_at["stream"]
         k["launches_chain"] = launches[name]
         k["launches_engine"] = engine_launches[name]
         k["launches_tx_su"] = tx_launches[name]
         k["launches_mu"] = mu_launches["mu"][name]
         k["launches_mu_lo"] = mu_launches["mu_lo"][name]
+        k["launches_stream"] = stream_launches[name]
         k["launches"] = sum(k[f"launches_{p}"] for p in (
-            "chain", "engine", "tx_su", "mu", "mu_lo"))
+            "chain", "engine", "tx_su", "mu", "mu_lo", "stream"))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -138,9 +138,11 @@ _COUNTED: list = []
 
 
 def counted(fn):
-    """Give a kernel wrapper a ``launches`` counter (bumped by the wrapper
-    where it launches its kernel, and nowhere else)."""
+    """Give a kernel wrapper a ``launches`` counter and a ``shapes`` set of
+    the problem shapes it launched at (both updated by the wrapper where
+    it launches its kernel, and nowhere else)."""
     fn.launches = 0
+    fn.shapes = set()
     _COUNTED.append(fn)
     return fn
 
@@ -148,7 +150,13 @@ def counted(fn):
 def reset_launch_counts():
     for fn in _COUNTED:
         fn.launches = 0
+        fn.shapes = set()
 
 
 def launch_counts() -> dict[str, int]:
     return {fn.__name__: fn.launches for fn in _COUNTED}
+
+
+def launch_shapes() -> dict[str, set]:
+    """Each wrapper's launch shapes since the last reset."""
+    return {fn.__name__: set(fn.shapes) for fn in _COUNTED}

@@ -85,6 +85,41 @@ def _movsum(x: torch.Tensor, w: int) -> torch.Tensor:
     return (c[:, w:] - c[:, :-w]).reshape(-1)[:n_out]
 
 
+def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """float32 ``a * b + c`` rounded once, as a fused multiply-add.
+
+    torch has no float32 FMA, so the sum is taken in float64, where the
+    product of two float32 values is exact, and rounded to odd (the
+    TwoSum error, then one ulp toward it when the last bit is even); the
+    cast to float32 then rounds once, as the FMA does."""
+    p = a.double() * b.double()
+    c = c.double()
+    s = p + c
+    bv = s - p
+    err = (p - (s - bv)) + (c - bv)
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.where(err > 0, torch.inf, -torch.inf).to(s.dtype)
+    return torch.where((err != 0) & even, torch.nextafter(s, toward),
+                       s).to(torch.float32)
+
+
+def _ltf_metric(a: CF, y: torch.Tensor) -> torch.Tensor:
+    """``|a| / sqrt(y)`` in the arithmetic the reference's XLA:CPU emits
+    for it: ``re*re + im*im`` contracted into one FMA, and the division
+    rewritten as ``sqrt(.) * rsqrt(y)``, the rsqrt an estimate refined by
+    two Newton steps whose multiply-adds are contracted too.  The last
+    bits decide the argmax on the flat top of the LTF autocorrelation.
+    The reference's estimate is the CPU's ``vrsqrtps`` table, which torch
+    cannot reach; the correctly rounded value stands in for it, so the
+    metric can still differ from the reference's in its last bit."""
+    mag = torch.sqrt(_fma(a.re, a.re, a.im * a.im))
+    r = (1.0 / torch.sqrt(y.double())).to(torch.float32)
+    minus1 = torch.full_like(y, -1.0)
+    for _ in range(2):
+        r = _fma(r * -0.5, _fma(y * r, r, minus1), r)
+    return mag * r
+
+
 def _movcount(flags: torch.Tensor, w: int) -> torch.Tensor:
     """Moving count of 0/1 flags over w, out[n] = sum flags[n:n+w], as
     exact int32 sums (equal to the reference's float32 sums of flags)."""
@@ -228,9 +263,8 @@ def ltf_fine_sync_cfo(wins: CF, cfo0: torch.Tensor):
     prod = wins[:, : n - 64].mul_conj(wins[:, 64:])
     are, aim, pw = _movsums([prod.re, prod.im, wins.abs2()], [64] * 3)
     a = CF(are, aim)                                      # (B, n-127)
-    den = torch.sqrt(torch.clamp(pw[:, :npts] * pw[:, 64: 64 + npts],
-                                 min=1e-24))
-    ac = a[:, :npts].abs() / den
+    ac = _ltf_metric(a[:, :npts], torch.clamp(
+        pw[:, :npts] * pw[:, 64: 64 + npts], min=1e-24))
     k = torch.argmax(ac, dim=1)
     peak = torch.gather(ac, 1, k[:, None])[:, 0]
     idx = torch.arange(npts, device=dev)[None, :]
@@ -317,6 +351,7 @@ def derotate(wins: CF, cfo: torch.Tensor, n: int) -> CF:
            cfo.data_ptr(), out_re.data_ptr(), out_im.data_ptr(), n, B,
            W_SCALE)
     derotate.launches += 1
+    derotate.shapes.add((B, n))
     return CF(out_re, out_im)
 
 

@@ -197,6 +197,7 @@ def acs_sweep(llr: torch.Tensor, pm0: torch.Tensor | None = None):
     launch("gr80211_acs_sweep", dev, llr.data_ptr(), pm0.data_ptr(),
            dec.data_ptr(), pm.data_ptr(), n_steps, B)
     acs_sweep.launches += 1
+    acs_sweep.shapes.add((B, n_steps))
     return dec, pm
 
 
@@ -246,6 +247,7 @@ def traceback_sweep(dec: torch.Tensor,
     launch("gr80211_traceback_sweep", dev, dec.data_ptr(), start.data_ptr(),
            bits.data_ptr(), n_steps, B)
     traceback_sweep.launches += 1
+    traceback_sweep.shapes.add((B, n_steps))
     return bits
 
 
@@ -309,6 +311,7 @@ def acs_sweep_packed(llr0: torch.Tensor, llr1: torch.Tensor,
            pm0.data_ptr(), dec_lo.data_ptr(), dec_hi.data_ptr(),
            pm.data_ptr(), n_steps, B)
     acs_sweep_packed.launches += 1
+    acs_sweep_packed.shapes.add((B, n_steps))
     return dec_lo, dec_hi, pm
 
 
@@ -346,6 +349,7 @@ def traceback_sweep_packed(dec_lo: torch.Tensor, dec_hi: torch.Tensor,
     launch("gr80211_traceback_sweep_packed", dev, dec_lo.data_ptr(),
            dec_hi.data_ptr(), start.data_ptr(), bits.data_ptr(), n_steps, B)
     traceback_sweep_packed.launches += 1
+    traceback_sweep_packed.shapes.add((B, n_steps))
     return bits
 
 

@@ -1,4 +1,5 @@
-"""The port's own numpy layers (``spec``, ``gold``, ``runtime.native``) vs
+"""The port's own numpy layers (``spec``, ``gold``, ``runtime.native``,
+the wire format of ``runtime.udp_phy``, ``utils.io``) vs
 the JAX package's, which they were copied from: every table, every
 derived config field, bits, bytes and samples exactly equal
 (``np.array_equal``; no tolerance, the code is the same numpy), and
@@ -6,6 +7,7 @@ derived config field, bits, bytes and samples exactly equal
 """
 import dataclasses
 import inspect
+import os
 
 import numpy as np
 import pytest
@@ -14,13 +16,17 @@ from gr_ieee80211_tpu.gold import bits as JB, channel as JCH, mac as JMAC
 from gr_ieee80211_tpu.gold import rx as JRX, sounding as JSND
 from gr_ieee80211_tpu.gold import sig as JS, tx as JTX
 from gr_ieee80211_tpu.runtime import native as JNAT
+from gr_ieee80211_tpu.runtime import udp_phy as JUDP
 from gr_ieee80211_tpu.spec import params as JP, tables as JT
+from gr_ieee80211_tpu.utils import io as JIO
 from gr_ieee80211_tpu_torch.gold import bits as PB, channel as PCH, mac as PMAC
 from gr_ieee80211_tpu_torch.gold import rx as PRX, sounding as PSND
 from gr_ieee80211_tpu_torch.gold import sig as PS, tx as PTX
 from gr_ieee80211_tpu_torch.runtime import native as PNAT
+from gr_ieee80211_tpu_torch.runtime import udp_phy as PUDP
 from gr_ieee80211_tpu_torch.spec import params as PP, tables as PT
 from gr_ieee80211_tpu_torch.spec.params import from_reference
+from gr_ieee80211_tpu_torch.utils import io as PIO
 
 ADDR = ("02:00:00:00:00:01", "02:00:00:00:00:02", "02:00:00:00:00:01")
 
@@ -444,3 +450,71 @@ def test_gold_rx_helpers_equal():
     _same(JRX.zf_equalize(y[:1], h[:1, :1]), PRX.zf_equalize(y[:1], h[:1, :1]))
     assert [f.name for f in dataclasses.fields(JRX.RxPacket)] == \
         [f.name for f in dataclasses.fields(PRX.RxPacket)]
+
+
+@pytest.mark.parametrize("nss", [1, 2])
+def test_io_equal(nss, tmp_path):
+    """``utils.io``: the same files from the same streams (cf32 and the
+    openwifi text format), and the same arrays read back."""
+    rng = np.random.default_rng(40 + nss)
+    sig = (rng.normal(size=(nss, 777)) + 1j * rng.normal(size=(nss, 777))
+           ) * 1000.0
+    for mod in (JIO, PIO):
+        d = tmp_path / mod.__name__.split(".")[0]
+        d.mkdir()
+        assert [os.path.basename(p) for p in mod.write_streams(
+            str(d / "s"), sig.astype(np.complex64))] == \
+            [f"s_{nss}x{nss}_{i}.bin" for i in range(nss)]
+        mod.write_streams_ow(str(d / "o"), sig)
+        mod.write_cf32(str(d / "one.bin"), sig[0])
+    jd, pd = tmp_path / "gr_ieee80211_tpu", tmp_path / "gr_ieee80211_tpu_torch"
+    names = sorted(p.name for p in jd.iterdir())
+    assert names == sorted(p.name for p in pd.iterdir())
+    for n in names:
+        assert (jd / n).read_bytes() == (pd / n).read_bytes(), n
+        if n.endswith(".bin"):
+            _same(PIO.read_cf32(str(pd / n)), JIO.read_cf32(str(jd / n)))
+        else:
+            _same(PIO.read_streams_ow(str(pd / n)),
+                  JIO.read_streams_ow(str(jd / n)))
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_wire_format_equal(seed):
+    """``runtime.udp_phy``'s wire functions on seeded valid requests and
+    reports: equal requests, bytes and parses."""
+    rng = np.random.default_rng(seed)
+    q = (rng.normal(size=(64, 2, 2, 2))).astype(np.float32)
+    blobs = [bytes([10]) + q.tobytes(), b"\x02\x00\x02\x00\x00"]
+    for fmt, mcs, nss in ((0, int(rng.integers(8)), 1),
+                          (1, int(rng.integers(16)), None),
+                          (2, int(rng.integers(9)), int(rng.integers(1, 3)))):
+        nss = nss or mcs // 8 + 1
+        n = int(rng.integers(1, 4096))
+        blobs.append(bytes([fmt, mcs, nss, n & 0xFF, n >> 8]) + rng.bytes(n))
+    n0, n1 = (int(v) for v in rng.integers(1, 2000, 2))
+    blobs.append(bytes([3, 2, 1, n0 & 0xFF, n0 >> 8, 1, 1, n1 & 0xFF,
+                        n1 >> 8, 2]) + rng.bytes(n0 + n1))
+    for b in blobs:
+        j, p = JUDP.parse_mac_to_phy(b), PUDP.parse_mac_to_phy(b)
+        assert j.kind == p.kind and j.__dict__.keys() == p.__dict__.keys()
+        for k in j.__dict__:
+            a, c = getattr(j, k), getattr(p, k)
+            if isinstance(a, np.ndarray):
+                _same(c, a)
+            elif k == "fmt":                # each package's own Fmt enum
+                assert int(a) == int(c)
+            else:
+                _same(c, a)
+    chan = rng.normal(size=(2, 64)) + 1j * rng.normal(size=(2, 64))
+    for blob in (PUDP.pack_chan_report(chan),
+                 PUDP.pack_phy_to_mac(2, rng.bytes(300), 7)):
+        assert blob == (JUDP.pack_chan_report(chan) if blob[0] == 20 else
+                        JUDP.pack_phy_to_mac(2, blob[3:-1], 7))
+        (f0, x0, m0), (f1, x1, m1) = (PUDP.parse_phy_to_mac(blob),
+                                      JUDP.parse_phy_to_mac(blob))
+        assert (f0, m0) == (f1, m1)
+        if isinstance(x0, np.ndarray):
+            _same(x0, x1)
+        else:
+            assert x0 == x1

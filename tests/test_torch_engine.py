@@ -4,26 +4,35 @@ JAX package's ``RxEngine`` on the same streams, packet by packet.
 Equal: ok, fmt, mcs, nss, trig, psdu, mpdus and is_ndp, and start (the
 LTF timing) with one exception.  The timing is the shoulder midpoint of
 a flat autocorrelation peak, a near-tie at high SNR.  The port takes
-the reference's moving sums in its exact summation order, but XLA:CPU
-also contracts products into FMAs and divides by an approximate,
-machine-dependent rsqrt there, which no torch op reproduces.  So where
-the reference's own rounding decides a tie, start may differ by at most
-2 samples, for at most one packet in 20.  Such a packet must still
-decode to the same bytes, and its CFO (read at the other lag) is then
-held to 25 Hz.  RSSI is the windowed power at the argmax of the same
-flat top, the same kind of near-tie, so it is held to 1% relative.
+the reference's moving sums in its exact summation order and its metric
+in XLA:CPU's arithmetic (the FMA contraction and the Newton-refined
+rsqrt, ``frontend._ltf_metric``), all but the rsqrt's first estimate,
+which is the CPU's own ``vrsqrtps`` table there.  So where that last
+bit decides a tie, start may differ by at most 2 samples, for at most
+one packet in 20.  (The tests that hold every start exactly do so only
+where :func:`ltf_metric_as_measured` finds the host's metric to be the
+one they were measured with, and otherwise take this bound.)  Such a packet must still decode to the same bytes,
+and its CFO (read at the other lag) is then held to 25 Hz.  RSSI is the
+windowed power at the argmax of the same flat top, the same kind of
+near-tie, so it is held to 1% relative.
 
 Floats otherwise: cfo_hz within 0.01 Hz (float32 rounding of the same
 sums); snr_db within 0.02 dB (10 log10(peak / (1 - peak)) magnifies the
 last bits of a peak near 1); sssnr0 within 1e-3 dB (0.5 dB for a packet
 whose timing moved); NDP channel estimates within 1e-4 of their scale.
 """
+import functools
+import hashlib
+
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from gr_ieee80211_tpu.gold import channel, mac, tx as gtx
 from gr_ieee80211_tpu.models import rx as JRX
+from gr_ieee80211_tpu.ops.cplx import CF as JCF
 from gr_ieee80211_tpu.spec.params import Fmt, PhyConfig
 from gr_ieee80211_tpu_torch.models import rx as PRX
 
@@ -56,6 +65,44 @@ def assert_same_results(ref, got, exact=EXACT, moved_cfo_hz=25.0):
             scale = np.abs(a.ndp_chan).max()
             assert np.abs(a.ndp_chan - b.ndp_chan).max() <= 1e-4 * scale
     assert n_moved <= max(1, len(ref) // 20), n_moved
+
+
+#: sha256 (first 16 hex digits) of the reference's metric on the seeded
+#: inputs of ``ltf_metric_as_measured``, on the host where the exact start
+#: tests were measured (an Intel Xeon with AVX2, JAX 0.9.0 on its CPU)
+MEASURED_METRIC_DIGEST = "fe818f72a1aad4bc"
+
+
+@functools.lru_cache(maxsize=None)
+def ltf_metric_as_measured() -> bool:
+    """True where XLA:CPU computes the reference's LTF metric ``|a| /
+    sqrt(max(y, 1e-24))`` bit for bit as on the host the exact start tests
+    were measured on.  Its rsqrt starts from the CPU's own estimate table
+    (``vrsqrtps`` differs between vendors; XLA takes ``vrsqrt14ps`` with
+    AVX-512), which the port cannot reach, so elsewhere a near-tie may fall
+    the other way.  Probed on 65536 seeded values (normal ``a``, ``y``
+    log-uniform over e^-20..e^20)."""
+    rng = np.random.default_rng(0)
+    n = 1 << 16
+    re, im = (rng.normal(size=n).astype(np.float32) for _ in range(2))
+    y = np.exp(rng.uniform(-20, 20, n)).astype(np.float32)
+    out = np.asarray(jax.jit(lambda a, b, c: JCF(a, b).abs() / jnp.sqrt(
+        jnp.maximum(c, 1e-24)))(re, im, y))
+    return hashlib.sha256(out.tobytes()).hexdigest()[:16] == \
+        MEASURED_METRIC_DIGEST
+
+
+def assert_same_starts(ref, got):
+    """Two lists of LTF starts: equal where :func:`ltf_metric_as_measured`;
+    elsewhere at most one in 20 moved, by at most 2 samples."""
+    ref, got = [int(v) for v in ref], [int(v) for v in got]
+    assert len(ref) == len(got), (len(ref), len(got))
+    if ltf_metric_as_measured():
+        assert got == ref
+        return
+    moved = [(a, b) for a, b in zip(ref, got) if a != b]
+    assert all(abs(a - b) <= 2 for a, b in moved), moved
+    assert len(moved) <= max(1, len(ref) // 20), moved
 
 
 def both(stream, **kw):

@@ -41,9 +41,14 @@ def test_port_has_the_expected_modules():
     for want in ("models.rx", "models.tx", "gold.rx", "gold.sounding",
                  "ops.viterbi_kernels", "ops.fastdecode",
                  "spec.params", "spec.tables", "gold.bits", "gold.sig",
-                 "gold.mac", "gold.tx", "gold.channel", "runtime.native"):
+                 "gold.mac", "gold.tx", "gold.channel", "runtime.native",
+                 "runtime.udp_phy", "runtime.streaming", "utils.io"):
         assert f"{PORT}.{want}" in mods
-    assert "tools_torch.viterbi_designs" in mods
+    for tool in ("viterbi_designs", "rx_daemon", "tx_daemon", "cmu_demo",
+                 "mac_example_rx", "mac_example_tx", "pkt_gen_example",
+                 "pkt_gen_ow_example", "pkt_proc_example", "cmu_offline",
+                 "draw_bin"):
+        assert f"tools_torch.{tool}" in mods
     assert not _forbidden(PORT) and _forbidden("gr_ieee80211_tpu.spec")
     assert _forbidden("jax.numpy") and _forbidden("gr_ieee80211_tpu")
 

@@ -147,10 +147,8 @@ def test_chain_ok_matches_on_bench_stream_18db():
     """A marginal SNR, where float differences can flip packets: the first
     128 packets of the bench's 18 dB stream run the dd pass and the full
     sweep, and every per-packet FCS flag, ltf_idx and valid flag equals
-    the reference's.  (Over the whole 4096-packet stream, 512 at a time,
-    5 packets' LTF timing differs by 1-3 samples and one FCS flag flips:
-    the lag-64 autocorrelation peak is a near-tie that the moving sums'
-    summation order decides; see PERF.md.)"""
+    the reference's.  (The LTF timing of the whole 4096-packet stream is
+    held in ``test_torch_frontend.py``.)"""
     cfg, ml, s = _bench_stream_18db(128)
     ref = [np.asarray(x) for x in JRX.rx_chain_ok(
         cfg, from_host(s), nrx=1, mpdu_len=ml, max_pkts=128)]
