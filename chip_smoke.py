@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's receive chain, engine, transmitter and MU-MIMO
-sounding loop on one CUDA card and check them.
+"""Drive the PyTorch port's receive chain, engine, transmitter, MU-MIMO
+sounding loop, streaming runtime and sharded programs on one CUDA card and
+check them.
 
     python3 chip_smoke.py
 
@@ -83,10 +84,28 @@ Phases (any failure exits non-zero before the final line):
    SUCCESS"; (h4) ``tools_torch/rx_daemon.py --file`` (the first 4
    blocks of (h1)'s stream) ``--once --device cuda`` counts every packet
    of those blocks ok.  K1/K2 must launch under the streamer;
-11. K1/K2 held to their twins at every (B, T) they launched at in the
-   engine runs (a)-(c) and under the streamer ((h1), (h2)): the shapes
-   the buckets of the canonical configs and the batch ladder give them,
-   recorded by the wrappers where they launch.
+11. scale-out (i), on 4 shards sharing the card (one a card where there
+   are more): (i1) ``parallel.mesh.rx_chain_sp`` on the bench streams (4096
+   detected at both SNRs, >= 99% ok at 32 dB, K1/K2 launch at 18 dB),
+   timed beside the single-device chain; (i2) tests/test_mesh.py's
+   streams through ``rx_chain_sp`` and ``frontend_sp`` on 8 shards, card
+   == CPU; (i3) ``frontend_sp`` on the bench's packets without noise: one
+   trigger per packet after dedup, each within [-64, 8] of its start;
+   (i4) ``payload_decode_dp`` on 4096 windows cut from the 32 dB stream at
+   the packet starts (>= 99% pass FCS, sampled PSDUs equal the bytes
+   sent; the scan Viterbi, no kernel) and 1024 2x2 VHT 2-SS windows (all
+   pass); (i5) ``mu_chain_dp`` on phase (g)'s 2048 station-0 PPDUs cut
+   into one capture a shard (32 dB: all detected, >= 99% ok; 12 dB:
+   K1/K2 launch); (i6) ``tools_torch/mesh_worker.py`` as 2 processes over
+   Gloo on the card, half the shards and half the input each: both print
+   (i1)'s 18 dB counts and (i4)'s total; (i7) ``entry.entry`` and
+   ``entry.dryrun_multichip``.  A ``{"mesh": ...}`` line holds the
+   counts, the times and the shard layout;
+12. K1/K2 held to their twins at every (B, T) they launched at in the
+   engine runs (a)-(c), under the streamer ((h1), (h2)) and in the
+   sharded programs (i): the shapes the buckets of the canonical configs,
+   the batch ladder and the shards give them, recorded by the wrappers
+   where they launch.
 
 The line before the last is a JSON object describing each kernel; the
 last is ``{"ok": true, "device": {...}}``.  Imports neither JAX nor the
@@ -129,10 +148,23 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def bench_base(wave):
+    """The bench's packets without noise: (B copies of ``wave`` with
+    900 Hz CFO, the first at sample 1024, ``spacing`` = 240 samples more
+    than a packet apart; spacing)."""
+    from gr_ieee80211_tpu_torch.gold import channel
+    spacing = len(wave) + 240
+    base = np.zeros(B * spacing + 2048, np.complex64)
+    w = channel.apply_cfo(wave, CFO_HZ).astype(np.complex64)
+    for i in range(B):
+        base[1024 + i * spacing: 1024 + i * spacing + len(wave)] = w
+    return base, spacing
+
+
 def bench_streams():
     """The bench's stream (bench.py): B copies of one VHT MCS7 500 B
     A-MPDU with 900 Hz CFO and a 240-sample gap, at 32 and 18 dB."""
-    from gr_ieee80211_tpu_torch.gold import channel, mac, tx
+    from gr_ieee80211_tpu_torch.gold import mac, tx
     from gr_ieee80211_tpu_torch.spec.params import Fmt, PhyConfig
     rng = np.random.default_rng(1)
     payload = bytes(rng.integers(0, 256, 500, dtype=np.uint8))
@@ -141,11 +173,7 @@ def bench_streams():
     am = mac.ampdu_aggregate_vht([mpdu])
     cfg = PhyConfig(Fmt.VHT, MCS, 1, len(am), ampdu=True)
     wave = tx.tx_waveform(cfg, am, group_id=0, partial_aid=0)[0]
-    spacing = len(wave) + 240
-    base = np.zeros(B * spacing + 2048, np.complex64)
-    w = channel.apply_cfo(wave, CFO_HZ).astype(np.complex64)
-    for i in range(B):
-        base[1024 + i * spacing: 1024 + i * spacing + len(wave)] = w
+    base, _ = bench_base(wave)
     rms = float(np.sqrt(np.mean(np.abs(wave) ** 2)))
     streams = {}
     for snr in (SNR_HI, SNR_LO):
@@ -327,7 +355,7 @@ def phase_chain(torch, VK, CL, PRX, from_numpy_cf, bench):
         ms = cuda_ms(lambda: run(snr), N_REP)
         log(f"chain {snr:g} dB: {ms:.2f} ms/batch, {B / ms * 1e3:,.0f} pkt/s "
             f"(CUDA events, mean of {N_REP} batches of {B})")
-    return launches, n_ok
+    return launches, n_ok, results
 
 
 def phase_reference(torch, PRX, from_numpy_cf, bench):
@@ -1110,13 +1138,14 @@ def phase_mu_loop(torch, VK, CL, PRX, PTX, CF, from_numpy_cf, smi):
         log(f"mu (g') user {u}: rx_chain_ok_mu on the first 64 PPDUs, card "
             f"== CPU twins per packet ({int(both[0][0].sum())} ok)")
         if u == 0:
+            station0 = (cfg, ml, base, rms, spacing)
             for snr, st in ((SNR_HI, stream), (SNR_MU_LO, lo)):
                 out[f"rx_chain_count_mu_ms_{snr:g}dB"] = timed(
                     torch, lambda: count(cfg, st),
                     f"rx_chain_count_mu B={B_MU} user 0 VHT mcs3 at "
                     f"{snr:g} dB", B_MU, "PPDU", smi)
     log(f"mu: kernel launches on the MU path: {launches}")
-    return launches, out, errs
+    return launches, out, errs, station0
 
 
 # ---------------------------------------------------------------------------
@@ -1477,6 +1506,324 @@ def phase_streaming(torch, CL, PRX, engine_ms, smi):
     return launches, shapes
 
 
+# ---------------------------------------------------------------------------
+# scale-out: the sharded programs, in one process and in two
+# ---------------------------------------------------------------------------
+
+N_SHARDS = 4                            # on one card, unless there are more
+B_DP2 = 1024                            # (i4) 2x2 windows
+SHARD_MARGIN = 64                       # packets a shard may hold above B/n
+
+
+def median_ms(torch, fn, reps=5, warm=True):
+    """Median milliseconds of ``reps`` calls of ``fn``, each between two
+    CUDA events (after one untimed call when ``warm``)."""
+    if warm:
+        fn()
+    ts = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        ts.append(start.elapsed_time(end))
+    return float(np.median(ts))
+
+
+def small_sharded_stream(seed, snr_db, cfo_hz, num, gap):
+    """tests/test_mesh.py's streams: ``num`` copies of one VHT MCS4 A-MPDU
+    (a random 80 B payload from ``seed``), zero-padded to 8 shards;
+    returns (cfg, mpdu_len, stream)."""
+    from gr_ieee80211_tpu_torch.gold import channel, mac, tx
+    from gr_ieee80211_tpu_torch.spec.params import Fmt, PhyConfig
+    rng = np.random.default_rng(seed)
+    mpdu = mac.qos_data_frame(bytes(rng.integers(0, 256, 80, dtype=np.uint8)),
+                              *ADDR, 1)
+    am = mac.ampdu_aggregate_vht([mpdu])
+    cfg = PhyConfig(Fmt.VHT, 4, 1, len(am), ampdu=True)
+    wave = tx.tx_waveform(cfg, am, group_id=0, partial_aid=0)[0]
+    s = channel.frame_stream(wave, 1.0, cfo_hz, num=num, gap=gap)[0]
+    if snr_db is not None:
+        rms = np.sqrt(np.mean(np.abs(wave) ** 2))
+        s = channel.awgn(s[None], rms / 10 ** (snr_db / 20), rng)[0]
+    s = np.pad(s, (0, -len(s) % 8)).astype(np.complex64)
+    return cfg, len(mpdu), s
+
+
+def mesh_card_vs_cpu(torch, M, from_numpy_cf, dev):
+    """(i2) tests/test_mesh.py's two streams through rx_chain_sp and
+    frontend_sp on 8 shards, on the card and on the CPU."""
+    cfg, ml, s11 = small_sharded_stream(11, 30.0, 600.0, 12, 1400)
+    _, _, s13 = small_sharded_stream(13, None, 0.0, 6, 2000)
+    got = {}
+    for d in (dev.type, "cpu"):
+        mesh = M.make_mesh(8, axes=("sp",), device=d)
+        chain, _ = M.rx_chain_sp(cfg, mesh, mpdu_len=ml, max_pkts_per_shard=16)
+        got[d] = (tuple(int(x) for x in chain(from_numpy_cf(s11, d))),
+                  M.frontend_sp(mesh, max_out_per_shard=64)(
+                      from_numpy_cf(s13, d)).cpu())
+    (c_card, f_card), (c_cpu, f_cpu) = got[dev.type], got["cpu"]
+    check(c_card == c_cpu, f"(i2) rx_chain_sp: card {c_card}, CPU {c_cpu}")
+    check(c_card[1] == 12, f"(i2) rx_chain_sp detected {c_card[1]} of 12")
+    check(torch.equal(f_card, f_cpu),
+          "(i2) frontend_sp: card and CPU candidates differ")
+    log(f"mesh (i2): 12-packet 30 dB stream on 8 shards, rx_chain_sp card == "
+        f"CPU {c_card}; frontend_sp card == CPU, {int((f_card >= 0).sum())} "
+        "candidates")
+    return {"i2_counts": list(c_card)}
+
+
+def mesh_workers(mode, n_local, iq, dev, extra=()):
+    """(i6) tools_torch/mesh_worker.py as 2 processes over Gloo on the
+    card, ``n_local`` shards each; returns each rank's ((n_ok, n_det),
+    ms, launches)."""
+    import re
+    import socket
+    root = Path(__file__).resolve().parent
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    procs = [subprocess.Popen(
+        [sys.executable, "tools_torch/mesh_worker.py", str(r), "2", str(port),
+         mode, "--local-shards", str(n_local), "--backend", "gloo",
+         "--device", dev.type, "--iq", str(iq), "--reps", "3", *extra],
+        cwd=root, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=600)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    res = []
+    for r, (p, text) in enumerate(zip(procs, outs)):
+        for line in text.splitlines()[-4:]:
+            log(f"  mesh_worker {mode} rank {r}: {line}")
+        m = re.search(r"RESULT ok=(\d+) det=(\d+)", text)
+        t = re.search(rf"{mode.upper()}TIME ms=([0-9.]+)", text)
+        n = re.search(r"LAUNCHES (\{.*\})", text)
+        check(p.returncode == 0 and m and t and n,
+              f"(i6) {mode} rank {r} exited {p.returncode}:\n{text[-2000:]}")
+        res.append(((int(m.group(1)), int(m.group(2))), float(t.group(1)),
+                    json.loads(n.group(1))))
+    return res
+
+
+def phase_mesh(torch, CL, PRX, CF, from_numpy_cf, bench, chain_res,
+               station0, dev, smi):
+    """(i) the sharded programs on the card at the bench's size; returns
+    (the kernels' launch counts, K1/K2's launch shapes, the mesh line)."""
+    from gr_ieee80211_tpu_torch import entry as E
+    from gr_ieee80211_tpu_torch.parallel import mesh as M
+    from tools_torch.mesh_worker import save_capture
+    cfg, mpdu, am, wave, streams = bench
+    ml = len(mpdu)
+    n = max(N_SHARDS, torch.cuda.device_count()) if dev.type == "cuda" \
+        else N_SHARDS
+    mesh_sp = M.make_mesh(n, axes=("sp",), device=dev.type)
+    mesh_dp = M.make_mesh(n, axes=("dp",), device=dev.type)
+    launches, shapes = {}, set()
+    out = {"shards": n, "devices": [str(d) for d in mesh_sp.shards],
+           "shard_samples": len(streams[SNR_HI]) // n}
+
+    def counted(fn, what):
+        res, counts = counted_run(torch, CL, fn, f"mesh {what}", shapes)
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        return res, counts
+
+    # (i1) the time-sharded chain on the bench streams
+    max_pkts = B // n + SHARD_MARGIN
+    chain, halo = M.rx_chain_sp(cfg, mesh_sp, mpdu_len=ml,
+                                max_pkts_per_shard=max_pkts)
+    sp = {}
+    for snr in (SNR_HI, SNR_LO):
+        st = from_numpy_cf(streams[snr], dev)
+        rec, counts = counted(lambda: tuple(int(x) for x in chain(st)),
+                              f"(i1) rx_chain_sp {snr:g} dB")
+        sp[snr] = rec
+        check(rec[1] == B, f"(i1) {snr:g} dB: detected {rec[1]} of {B}")
+        if snr == SNR_HI:
+            check(rec[0] >= 0.99 * B, f"(i1) 32 dB: only {rec[0]} ok")
+        else:
+            check(counts["acs_sweep"] > 0 and counts["traceback_sweep"] > 0,
+                  f"(i1) 18 dB never launched K1/K2: {counts}")
+        st1 = CF(st.re[None], st.im[None])
+        ms = median_ms(torch, lambda: chain(st))
+        ms1 = median_ms(torch, lambda: PRX.rx_chain_count(
+            cfg, st1, mpdu_len=ml, max_pkts=B))
+        log(f"mesh (i1) rx_chain_sp {snr:g} dB, {n} shards of "
+            f"{out['shard_samples']} samples (halo {halo}, left {M.LH}, "
+            f"{max_pkts} packets a shard at most): (n_ok, n_det) = {rec}, "
+            f"single-device chain (phase 4) {chain_res[snr]}; {ms:.2f} "
+            f"ms/call against the single-device chain's {ms1:.2f} (CUDA "
+            f"events, warmed, median of 5; the shards run one after another "
+            f"on {mesh_sp.shards[0]}; {smi})")
+        out[f"i1_{snr:g}dB"] = {"n_ok": rec[0], "n_det": rec[1],
+                                "single_n_ok": chain_res[snr][0],
+                                "ms": ms, "single_ms": ms1}
+        del st, st1
+
+    out.update(mesh_card_vs_cpu(torch, M, from_numpy_cf, dev))
+
+    # (i3) the per-sample front end on the bench's packets without noise
+    base, spacing = bench_base(wave)
+    placed = 1024 + spacing * np.arange(B)
+    max_out = 3 * B // n
+    det = M.frontend_sp(mesh_sp, max_out_per_shard=max_out)
+    st = from_numpy_cf(base, dev)
+    cand, _ = counted(lambda: det(st).cpu().numpy(), "(i3) frontend_sp")
+    per_shard = (cand >= 0).sum(axis=1)
+    check(per_shard.max() < max_out, f"(i3) a shard filled {max_out} slots")
+    trigs = PRX.dedup_triggers(np.sort(cand[cand >= 0]))
+    check(len(trigs) == B, f"(i3) {len(trigs)} triggers for {B} packets")
+    err = trigs - placed
+    check(bool((err >= -64).all() and (err <= 8).all()),
+          f"(i3) trigger offsets {err.min()}..{err.max()} outside [-64, 8]")
+    ms = median_ms(torch, lambda: det(st))
+    log(f"mesh (i3) frontend_sp: {int(per_shard.sum())} candidates "
+        f"({per_shard.tolist()} a shard), {len(trigs)} triggers after dedup "
+        f"for {B} packets, offsets {int(err.min())}..{int(err.max())}; "
+        f"{ms:.2f} ms/call ({smi})")
+    out["i3"] = {"candidates": per_shard.tolist(), "triggers": len(trigs),
+                 "offset_min": int(err.min()), "offset_max": int(err.max()),
+                 "ms": ms}
+    del st
+
+    # (i4) packet-sharded decode of aligned windows (the scan Viterbi)
+    step, n_samp = M.payload_decode_dp(cfg, mesh_dp, mpdu_len=ml)
+    starts = 1024 + spacing * np.arange(B) + 188
+    wins = streams[SNR_HI][starts[:, None] + np.arange(n_samp)[None]]
+    wd = from_numpy_cf(wins, dev)
+    (psdu, ok, total), counts = counted(lambda: step(wd), "(i4) dp decode")
+    total = int(total)
+    check(total == int(ok.sum()), f"(i4) total {total} != {int(ok.sum())}")
+    check(total >= 0.99 * B, f"(i4) only {total} of {B} passed FCS")
+    rows = np.arange(0, B, B // 16)
+    check(bool((psdu[torch.from_numpy(rows), : len(am)].cpu().numpy()
+                == np.frombuffer(am, np.uint8)[None]).all()),
+          "(i4) sampled PSDUs differ from the bytes sent")
+    check(not any(counts.values()), f"(i4) launched a kernel: {counts}")
+    ms = median_ms(torch, lambda: step(wd), reps=3, warm=False)
+    log(f"mesh (i4) payload_decode_dp: {B} windows of {n_samp} samples on "
+        f"{n} shards, {total} pass FCS, {len(rows)} sampled PSDUs equal the "
+        f"bytes sent; {ms:.1f} ms/call (CUDA events, median of 3; scan "
+        f"Viterbi, {-(-cfg.n_trellis // 54) * 54} steps; {smi})")
+    out["i4"] = {"windows": B, "ok": total, "ms": ms}
+    from gr_ieee80211_tpu_torch.gold import mac, tx
+    from gr_ieee80211_tpu_torch.spec.params import Fmt, PhyConfig
+    m2 = mac.qos_data_frame(b"x" * 40, *ADDR, 1)
+    am2 = mac.ampdu_aggregate_vht([m2])
+    cfg2 = PhyConfig(Fmt.VHT, 2, 2, len(am2), ampdu=True)
+    rng = np.random.default_rng(0)
+    h2 = np.eye(2) + 0.25 * (rng.normal(size=(2, 2))
+                             + 1j * rng.normal(size=(2, 2)))
+    mixed = h2 @ tx.tx_waveform(cfg2, am2, group_id=0, partial_aid=0)
+    step2, n_samp2 = M.payload_decode_dp(cfg2, mesh_dp, mpdu_len=len(m2),
+                                         nrx=2)
+    w2 = from_numpy_cf(np.tile(mixed[:, 188: 188 + n_samp2][None],
+                               (B_DP2, 1, 1)).astype(np.complex64), dev)
+    (_, _, total2), _ = counted(lambda: step2(w2), "(i4) dp 2x2 decode")
+    check(int(total2) == B_DP2, f"(i4) 2x2: {int(total2)} of {B_DP2} ok")
+    ms2 = median_ms(torch, lambda: step2(w2), reps=3, warm=False)
+    log(f"mesh (i4) payload_decode_dp nrx=2: {B_DP2} VHT mcs2 2-SS windows "
+        f"through a seeded 2x2 mix, {int(total2)} pass FCS; {ms2:.1f} ms/call")
+    out["i4_2x2"] = {"windows": B_DP2, "ok": int(total2), "ms": ms2}
+    del wd, w2
+
+    # (i5) the MU station chain, one capture of phase (g) a shard
+    cfg_u, ml_u, base_u, rms_u, spacing_u = station0
+    per = B_MU // n
+    L = per * spacing_u
+    c0 = 1024 - GAP // 2                # each capture starts in a gap
+    mu_chain = M.mu_chain_dp(cfg_u, mesh_dp, n_total=2, own=0, mpdu_len=ml_u,
+                             max_pkts_per_shard=per + SHARD_MARGIN)
+    gen = torch.Generator(device=dev).manual_seed(71)
+    out["i5"] = {}
+    for snr in (SNR_HI, SNR_MU_LO):
+        s = add_noise(torch, CF, base_u, rms_u, snr, gen)
+        caps = CF(s.re[0, c0: c0 + n * L].reshape(n, L),
+                  s.im[0, c0: c0 + n * L].reshape(n, L))
+        rec, counts = counted(lambda: tuple(int(x) for x in mu_chain(caps)),
+                              f"(i5) mu_chain_dp {snr:g} dB")
+        if snr == SNR_HI:
+            check(rec[1] == B_MU and rec[0] >= 0.99 * B_MU,
+                  f"(i5) 32 dB: {rec} of {B_MU}")
+        else:
+            check(counts["acs_sweep"] > 0 and counts["traceback_sweep"] > 0,
+                  f"(i5) {snr:g} dB never launched K1/K2: {counts}")
+        ms = median_ms(torch, lambda: mu_chain(caps))
+        log(f"mesh (i5) mu_chain_dp {snr:g} dB: {n} captures of {per} PPDUs "
+            f"({L} samples), (n_ok, n_det) = {rec}; {ms:.2f} ms/call")
+        out["i5"][f"{snr:g}dB"] = {"n_ok": rec[0], "n_det": rec[1], "ms": ms}
+
+    # (i6) two processes over Gloo, each with half the shards and half the
+    # input (the shards' kernels load the library built above)
+    work = Path(__file__).resolve().parent / "build" / "chip_smoke"
+    work.mkdir(parents=True, exist_ok=True)
+    sp_iq, dp_iq = work / "mesh_sp18.npy", work / "mesh_dp32.npy"
+    save_capture(sp_iq, streams[SNR_LO], cfg, ml)
+    save_capture(dp_iq, wins, cfg, ml)
+    del wins
+    torch.cuda.empty_cache()
+    try:
+        ranks_sp = mesh_workers("sp", n // 2, sp_iq, dev,
+                                ("--max-pkts", str(max_pkts)))
+        ranks_dp = mesh_workers("dp", n // 2, dp_iq, dev)
+    finally:
+        for f in (sp_iq, dp_iq):
+            f.unlink(missing_ok=True)
+            f.with_suffix(".json").unlink(missing_ok=True)
+    for r, (rec, _, _) in enumerate(ranks_sp):
+        check(rec == sp[SNR_LO], f"(i6) sp rank {r}: {rec}, (i1) 18 dB "
+              f"{sp[SNR_LO]}")
+    for r, (rec, _, _) in enumerate(ranks_dp):
+        check(rec == (total, B), f"(i6) dp rank {r}: {rec}, (i4) {total}")
+    out["i6"] = {"sp": [rec for rec, _, _ in ranks_sp][0],
+                 "sp_ms": [t for _, t, _ in ranks_sp],
+                 "dp": [rec for rec, _, _ in ranks_dp][0],
+                 "dp_ms": [t for _, t, _ in ranks_dp],
+                 "launches": [ln for _, _, ln in ranks_sp + ranks_dp]}
+    log(f"mesh (i6) 2 processes x {n // 2} shards over Gloo on "
+        f"{mesh_sp.shards[0]}: sp {out['i6']['sp']} on both ranks (== (i1) 18 "
+        f"dB), SPTIME {out['i6']['sp_ms']} ms; dp {out['i6']['dp']} on both "
+        f"(== (i4)), DPTIME {out['i6']['dp_ms']} ms (two ranks time-share "
+        "one card: not a scaling figure)")
+
+    # (i7) the entry twin and the dry run of every sharded program
+    import contextlib
+    import io
+    fn, args = E.entry(dev.type)
+    psdu, _ = counted(lambda: fn(*args), "(i7) entry")
+    want = (8, PhyConfig(Fmt.VHT, 7, 1, 520, ampdu=True).psdu_len)
+    check(tuple(psdu.shape) == want and psdu.dtype == torch.uint8
+          and psdu.device.type == dev.type,
+          f"(i7) entry gave {tuple(psdu.shape)} {psdu.dtype} on {psdu.device}")
+    buf = io.StringIO()
+
+    def dryrun():
+        with contextlib.redirect_stdout(buf):
+            E.dryrun_multichip(n, device=dev.type)
+
+    counted(dryrun, "(i7) dryrun_multichip")
+    line = buf.getvalue().strip().splitlines()[-1]
+    check(line.startswith("dryrun ok:"), f"(i7) dryrun printed {line!r}")
+    log(f"mesh (i7): entry() psdu {tuple(psdu.shape)} {psdu.dtype}; "
+        f"dryrun_multichip({n}): {line}")
+    out["i7"] = line
+    log(f"mesh: kernel launches in (i1), (i3)-(i5), (i7): {launches}")
+    check(launches["acs_sweep"] > 0 and launches["traceback_sweep"] > 0,
+          f"(i) the sharded programs never launched K1/K2: {launches}")
+    out["card"] = smi
+    log(json.dumps({"mesh": out}))
+    return launches, shapes
+
+
 def hold_at_path_shapes(torch, VK, paths: dict, held: set):
     """K1/K2 against their twins (``hold_k1_k2``) at each (B, T) that a
     path launched them at and no earlier phase held them at; ``paths``
@@ -1578,27 +1925,34 @@ def main() -> int:
     kernels = (phase_kernels(torch, VK, VD, earlier)
                + phase_kernels_extra(torch, VK, VD, FE, earlier))
     bench = bench_streams()
-    launches, chain_ok = phase_chain(torch, VK, CL, PRX, from_numpy_cf, bench)
+    launches, chain_ok, chain_res = phase_chain(torch, VK, CL, PRX,
+                                                from_numpy_cf, bench)
     phase_reference(torch, PRX, from_numpy_cf, bench)
     engine_launches, engine_timing, engine_shapes = phase_engine(
         torch, CL, PRX, bench, chain_ok)
     phase_engine_reference(torch, PRX)
     tx_launches, tx_su = phase_tx_su(torch, CL, PRX, PTX, CF, bench, smi)
     tx_mu = phase_tx_mu(torch, PTX, from_numpy_cf, smi)
-    mu_launches, mu_out, mu_errs = phase_mu_loop(torch, VK, CL, PRX, PTX, CF,
-                                                 from_numpy_cf, smi)
+    mu_launches, mu_out, mu_errs, station0 = phase_mu_loop(
+        torch, VK, CL, PRX, PTX, CF, from_numpy_cf, smi)
     # engine (b) with speculation, as the streamer's engine runs
     engine_ms = 1e3 * float(np.mean(engine_timing[True])) / N_BLOCKS
     stream_launches, stream_shapes = phase_streaming(torch, CL, PRX,
                                                      engine_ms, smi)
-    # K1/K2 at every shape the engine and the streamer launched them at
-    # (the chain's and the MU path's shapes were held above)
+    mesh_launches, mesh_shapes = phase_mesh(
+        torch, CL, PRX, CF, from_numpy_cf, bench, chain_res, station0,
+        torch.device("cuda", 0), smi)
+    # K1/K2 at every shape the engine, the streamer and the sharded
+    # programs launched them at (the chain's and the MU path's shapes were
+    # held above)
     held = {(B, T_KERNEL), (B_BUCKET, T_KERNEL)} | {
         (h["B"], h["T"]) for h in mu_out["mu_k1_k2_held_at"]}
     path_errs, held_at = hold_at_path_shapes(
-        torch, VK, {"engine": engine_shapes, "stream": stream_shapes}, held)
-    check(stream_shapes and engine_shapes,
-          "no K1/K2 launch shapes recorded on the engine or stream path")
+        torch, VK, {"engine": engine_shapes, "stream": stream_shapes,
+                    "mesh": mesh_shapes}, held)
+    check(stream_shapes and engine_shapes and mesh_shapes,
+          "no K1/K2 launch shapes recorded on the engine, stream or mesh "
+          "path")
     check_self_contained()
     log(json.dumps({"paths": {**tx_su, **tx_mu, **mu_out, "card": smi}}))
 
@@ -1612,14 +1966,16 @@ def main() -> int:
             k["held_at_mu"] = mu_out["mu_k1_k2_held_at"]
             k["held_at_engine"] = held_at["engine"]
             k["held_at_stream"] = held_at["stream"]
+            k["held_at_mesh"] = held_at["mesh"]
         k["launches_chain"] = launches[name]
         k["launches_engine"] = engine_launches[name]
         k["launches_tx_su"] = tx_launches[name]
         k["launches_mu"] = mu_launches["mu"][name]
         k["launches_mu_lo"] = mu_launches["mu_lo"][name]
         k["launches_stream"] = stream_launches[name]
+        k["launches_mesh"] = mesh_launches[name]
         k["launches"] = sum(k[f"launches_{p}"] for p in (
-            "chain", "engine", "tx_su", "mu", "mu_lo", "stream"))
+            "chain", "engine", "tx_su", "mu", "mu_lo", "stream", "mesh"))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -123,9 +123,10 @@ def from_numpy_cf_i8(x: np.ndarray, device) -> CF:
     return CF(one(x.real), one(x.imag))
 
 
-def cf_from_pair(re: np.ndarray, im: np.ndarray, device="cpu") -> CF:
+def cf_from_pair(re: np.ndarray, im: np.ndarray, device) -> CF:
     """A reference ``CF`` pulled to numpy (``np.asarray(cf.re)``, ...) ->
-    the port's CF.  Keeps the dtype (float32, or bfloat16 via float32)."""
+    the port's CF on ``device``.  Keeps the dtype (float32, or bfloat16
+    via float32)."""
     def one(a):
         a = np.asarray(a)
         if a.dtype.name == "bfloat16":

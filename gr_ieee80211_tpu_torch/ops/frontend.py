@@ -135,6 +135,26 @@ def _floor(p: torch.Tensor) -> torch.Tensor:
     return torch.clamp(_POWER_FLOOR_REL * p.mean(), min=1e-12)
 
 
+def stf_metrics(x: CF):
+    """x (n,) -> (metric m, lag-16 autocorrelation CF), aligned to x[0]:
+    the per-sample plateau metric |sum_48 x[k] conj x[k+16]| over the
+    64-sample power (floored), which the time-sharded front end reads.
+
+    The products and magnitudes take the multiply-adds XLA:CPU contracts
+    them into (``re*re' + im*im'`` as ``fma(re, re', im*im')``), so the
+    moving sums are bit-equal to the reference's and the metric is within
+    an ulp of it."""
+    n = x.shape[-1]
+    a, b = x[: n - 16], x[16:]
+    prod = CF(_fma(a.re, b.re, a.im * b.im), _fma(a.im, b.re, -(a.re * b.im)))
+    c = CF(_movsum(prod.re, 48), _movsum(prod.im, 48))
+    p = _movsum(_fma(x.re, x.re, x.im * x.im), 64)
+    k = min(c.shape[-1], p.shape[-1])
+    c = c[..., :k]
+    mag = torch.sqrt(_fma(c.re, c.re, c.im * c.im))
+    return mag / torch.maximum(p[..., :k], _floor(p)), c
+
+
 DETECT_STRIDE = 16
 DETECT_ROW = 8192
 _DET_OV = 96
@@ -288,11 +308,36 @@ def ltf_fine_sync_cfo(wins: CF, cfo0: torch.Tensor):
     return mid.to(torch.int32), peak, cfo, rssi
 
 
+def ltf_fine_sync(wins: CF):
+    """Per-packet L-LTF timing on (B, 368) windows at trigger+80: (offset
+    (B,) int32, peak (B,)), :func:`ltf_fine_sync_cfo` without its CFO and
+    RSSI."""
+    off, peak, _, _ = ltf_fine_sync_cfo(
+        wins, torch.zeros(wins.shape[0], dtype=torch.float32,
+                          device=wins.device))
+    return off, peak
+
+
 def coarse_cfo_batch(stf_wins: CF) -> torch.Tensor:
     """(B, >=80) windows at the trigger -> CFO Hz from lag-16 autocorr."""
     prod = stf_wins[:, :64].mul_conj(stf_wins[:, 16:80])
     s = CF(prod.re.mean(dim=1), prod.im.mean(dim=1))
     return -s.angle() / 16 / (2 * np.pi) * FS
+
+
+#: float32(-2 pi), the factor a Python float becomes beside float32 data
+NEG_TWO_PI = float(np.float32(-2 * np.pi))
+
+
+def fine_cfo_batch(ltf_wins: CF, cfo0: torch.Tensor) -> torch.Tensor:
+    """(B, 128) LTF windows + coarse CFO -> refined CFO Hz: the windows
+    derotated by ``cfo0``, then the angle of their lag-64
+    autocorrelation (float32, in the reference's order)."""
+    t = torch.arange(128, dtype=torch.float32, device=cfo0.device)
+    w = ltf_wins * expj(NEG_TWO_PI * cfo0[:, None] / FS * t[None, :])
+    prod = w[:, :64].mul_conj(w[:, 64:128])
+    s = CF(prod.re.mean(dim=1), prod.im.mean(dim=1))
+    return cfo0 - s.angle() / 64 / (2 * np.pi) * FS
 
 
 def _derotate_factored(wins: CF, cfo: torch.Tensor, n: int) -> CF:

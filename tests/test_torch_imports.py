@@ -42,12 +42,13 @@ def test_port_has_the_expected_modules():
                  "ops.viterbi_kernels", "ops.fastdecode",
                  "spec.params", "spec.tables", "gold.bits", "gold.sig",
                  "gold.mac", "gold.tx", "gold.channel", "runtime.native",
-                 "runtime.udp_phy", "runtime.streaming", "utils.io"):
+                 "runtime.udp_phy", "runtime.streaming", "utils.io",
+                 "parallel.mesh", "parallel.distributed", "entry"):
         assert f"{PORT}.{want}" in mods
     for tool in ("viterbi_designs", "rx_daemon", "tx_daemon", "cmu_demo",
                  "mac_example_rx", "mac_example_tx", "pkt_gen_example",
                  "pkt_gen_ow_example", "pkt_proc_example", "cmu_offline",
-                 "draw_bin"):
+                 "draw_bin", "mesh_worker"):
         assert f"tools_torch.{tool}" in mods
     assert not _forbidden(PORT) and _forbidden("gr_ieee80211_tpu.spec")
     assert _forbidden("jax.numpy") and _forbidden("gr_ieee80211_tpu")

@@ -75,7 +75,7 @@ def test_host_ingest_and_helpers():
                           pb.re.float().numpy())
     assert np.array_equal(np.asarray(jb.im).astype(np.float32),
                           pb.im.float().numpy())
-    back = PC.cf_from_pair(np.asarray(jb.re), np.asarray(jb.im))
+    back = PC.cf_from_pair(np.asarray(jb.re), np.asarray(jb.im), "cpu")
     assert back.re.dtype == torch.bfloat16 and torch.equal(back.re, pb.re)
     th = rng.normal(size=(5, 9)).astype(np.float32)
     _close(JC.expj(jnp.asarray(th)), PC.expj(torch.from_numpy(th)), 1e-6)
