@@ -101,11 +101,34 @@ Phases (any failure exits non-zero before the final line):
    (i1)'s 18 dB counts and (i4)'s total; (i7) ``entry.entry`` and
    ``entry.dryrun_multichip``.  A ``{"mesh": ...}`` line holds the
    counts, the times and the shard layout;
-12. K1/K2 held to their twins at every (B, T) they launched at in the
-   engine runs (a)-(c), under the streamer ((h1), (h2)) and in the
-   sharded programs (i): the shapes the buckets of the canonical configs,
-   the batch ladder and the shards give them, recorded by the wrappers
-   where they launch.
+12. the harness tools (j), each as a subprocess through its command line
+   (four at a time on the card), outputs under build/chip_smoke_tools/:
+   ``bench.py`` (its JSON line; >= 99% ok at 32 dB), ``perf_sweep.py``
+   over VHT MCS0-8 and over L and HT MCS0-3, then one VHT 2-SS MCS and
+   the MU sweep at MCS3 (n = 100, 0-30 dB in steps of 3: every point
+   within 1/n of the JAX package's curve for the same command,
+   tests/golden/per_sweep_jax.json;
+   PER 0 at 30 dB; never rising by more than 2/n from one point to the
+   next where the reference does not) and one small sweep on the card and
+   on the CPU (per-row and per-slot results equal),
+   ``bench_snr_sweep.py`` (every packet detected at every point, K1/K2
+   launching at the lowest), ``bench_long.py`` (the ~32,300-step
+   trellis: every packet detected, >= 99% ok), ``bench_tx.py`` (SU and
+   MU, packet 0 within 2e-6 / 2e-5 of the gold model), ``bench_mu.py``
+   (every packet ok), ``bench_daemon.py`` (a short ladder; the resident
+   engine counts every packet ok), ``latency_report.py`` (one MCS, no
+   packet lost) and ``multihost_scaling.py`` (1, 2 and 4 Gloo ranks,
+   every packet decoded); a ``{"tools": ...}`` line holds their numbers
+   and the kernels' launches and K1/K2's launch shapes summed from the
+   ``launches`` / ``k1_k2_shapes`` each tool writes over its runs on the
+   card;
+13. K1/K2 held to their twins at every (B, T) they launched at in the
+   engine runs (a)-(c), under the streamer ((h1), (h2)), in the
+   sharded programs (i) and in the tools (j), and at bench_long's
+   trellis (T = 32320) in any case: the shapes the buckets of the
+   canonical configs, the batch ladder, the tiers and the shards give
+   them, recorded by the wrappers where they launch (the kernels at each
+   shape, the twins once per T on the shapes' rows stacked).
 
 The line before the last is a JSON object describing each kernel; the
 last is ``{"ok": true, "device": {...}}``.  Imports neither JAX nor the
@@ -148,41 +171,6 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bench_base(wave):
-    """The bench's packets without noise: (B copies of ``wave`` with
-    900 Hz CFO, the first at sample 1024, ``spacing`` = 240 samples more
-    than a packet apart; spacing)."""
-    from gr_ieee80211_tpu_torch.gold import channel
-    spacing = len(wave) + 240
-    base = np.zeros(B * spacing + 2048, np.complex64)
-    w = channel.apply_cfo(wave, CFO_HZ).astype(np.complex64)
-    for i in range(B):
-        base[1024 + i * spacing: 1024 + i * spacing + len(wave)] = w
-    return base, spacing
-
-
-def bench_streams():
-    """The bench's stream (bench.py): B copies of one VHT MCS7 500 B
-    A-MPDU with 900 Hz CFO and a 240-sample gap, at 32 and 18 dB."""
-    from gr_ieee80211_tpu_torch.gold import mac, tx
-    from gr_ieee80211_tpu_torch.spec.params import Fmt, PhyConfig
-    rng = np.random.default_rng(1)
-    payload = bytes(rng.integers(0, 256, 500, dtype=np.uint8))
-    mpdu = mac.qos_data_frame(payload, "f4:69:d5:80:0f:a0",
-                              "00:c0:ca:b1:5b:e1", "f4:69:d5:80:0f:a0", 7)
-    am = mac.ampdu_aggregate_vht([mpdu])
-    cfg = PhyConfig(Fmt.VHT, MCS, 1, len(am), ampdu=True)
-    wave = tx.tx_waveform(cfg, am, group_id=0, partial_aid=0)[0]
-    base, _ = bench_base(wave)
-    rms = float(np.sqrt(np.mean(np.abs(wave) ** 2)))
-    streams = {}
-    for snr in (SNR_HI, SNR_LO):
-        noise = (rng.normal(size=len(base)) + 1j * rng.normal(size=len(base))
-                 ).astype(np.complex64) * (rms / 10 ** (snr / 20) / np.sqrt(2))
-        streams[snr] = base + noise
-    return cfg, mpdu, am, wave, streams
-
-
 T_KERNEL = 4480                         # the chain's padded trellis
 B_BUCKET = 64                           # one engine Viterbi bucket
 KERNEL_REPS = 10
@@ -223,29 +211,40 @@ def llr_pairs(torch, rng, dev, n_pkts=B, n_trellis=4420):
     return torch.from_numpy(x).to(dev)
 
 
-def hold_k1_k2(torch, VK, llr, what):
-    """K1 and K2 against their twins on ``llr`` for pinned and uniform
-    metrics, state-0 and argmax starts: exact equality."""
-    n = llr.shape[0]
-    dev = llr.device
-    uniform = torch.zeros((n, 64), dtype=torch.float32, device=dev)
+def hold_k1_k2(torch, VK, llrs, what):
+    """K1 and K2 against their twins for pinned and uniform metrics,
+    state-0 and argmax starts: exact equality.  ``llrs`` is one (B, T, 2)
+    LLR tensor or a list of them of one T: the kernels run on each, the
+    twins (row-independent loops over T) once on the rows stacked.
+    Returns the max errors of K1's metrics and K2's bits."""
+    if torch.is_tensor(llrs):
+        llrs = [llrs]
+    dev = llrs[0].device
+    bs = [x.shape[0] for x in llrs]
+    llr_all = torch.cat(llrs)
     err_acs = err_tb = 0.0
-    for name, pm0 in (("pinned", VK.state0_metrics(n, dev)),
-                      ("uniform", uniform)):
-        dec, pm = VK.acs_sweep(llr, pm0)
+    for name in ("pinned", "uniform"):
+        pm0s = [VK.state0_metrics(b, dev) if name == "pinned" else
+                torch.zeros((b, 64), dtype=torch.float32, device=dev)
+                for b in bs]
+        got = [VK.acs_sweep(x, p) for x, p in zip(llrs, pm0s)]
         torch.cuda.synchronize()
-        dec_ref, pm_ref = VK.acs_sweep_ref(llr, pm0)
+        dec_ref, pm_ref = VK.acs_sweep_ref(llr_all, torch.cat(pm0s))
+        dec = torch.cat([d for d, _ in got])
+        pm = torch.cat([p for _, p in got])
         check(torch.equal(dec, dec_ref),
               f"K1 decisions differ from the twin ({what}, {name} pm0)")
         check(torch.equal(pm, pm_ref),
               f"K1 final metrics differ from the twin ({what}, {name} pm0)")
         err_acs = max(err_acs, float((pm - pm_ref).abs().max()))
         del dec_ref, pm_ref
-        for sname, start in (("state 0", VK.state0_start(n, dev)),
-                             ("argmax", VK.argmax_start(pm))):
-            bits = VK.traceback_sweep(dec, start)
+        for sname in ("state 0", "argmax"):
+            starts = [VK.state0_start(b, dev) if sname == "state 0" else
+                      VK.argmax_start(p) for b, (_, p) in zip(bs, got)]
+            bits = torch.cat([VK.traceback_sweep(d, st) for (d, _), st in
+                              zip(got, starts)])
             torch.cuda.synchronize()
-            bref = VK.traceback_ref(dec, start)
+            bref = VK.traceback_ref(dec, torch.cat(starts))
             check(torch.equal(bits, bref),
                   f"K2 bits differ from the twin ({what}, {name} pm0, "
                   f"{sname})")
@@ -622,7 +621,8 @@ def run_blocks(eng, stream, n_blocks=N_BLOCKS):
         tic = time.perf_counter()
         handle = eng.begin_process(view)
         res = eng.finish_process(handle)
-        torch.cuda.synchronize()
+        if eng.device.type == "cuda":
+            torch.cuda.synchronize()
         secs.append(time.perf_counter() - tic)
         kinds.append(handle[2][0])
         for r in res:
@@ -1672,7 +1672,8 @@ def phase_mesh(torch, CL, PRX, CF, from_numpy_cf, bench, chain_res,
     out.update(mesh_card_vs_cpu(torch, M, from_numpy_cf, dev))
 
     # (i3) the per-sample front end on the bench's packets without noise
-    base, spacing = bench_base(wave)
+    from tools_torch import bench as TB
+    base, spacing = TB.lay(wave, B), len(wave) + TB.GAP
     placed = 1024 + spacing * np.arange(B)
     max_out = 3 * B // n
     det = M.frontend_sp(mesh_sp, max_out_per_shard=max_out)
@@ -1824,21 +1825,285 @@ def phase_mesh(torch, CL, PRX, CF, from_numpy_cf, bench, chain_res,
     return launches, shapes
 
 
+# ---------------------------------------------------------------------------
+# (j) the harness tools, each as a user runs it
+# ---------------------------------------------------------------------------
+
+TOOLS_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_tools"
+TOOL_LANES = 4                          # tool processes at once on the card
+T_LONG = 32320                          # bench_long's trellis, padded to 64s
+PER_N = 100                             # perf_sweep packets a point
+LONG_B = 1024                           # bench_long's default batch
+#: the JAX package's PER curves for phase (j)'s three sweeps
+PER_REFERENCE = (Path(__file__).resolve().parent / "tests" / "golden"
+                 / "per_sweep_jax.json")
+
+
+def tool_runs(out: Path) -> dict:
+    """name -> argv of every tool run of phase (j); outputs under ``out``."""
+    py = sys.executable
+    per = [py, "tools_torch/perf_sweep.py"]
+    sweep = ["--n", str(PER_N), "--snrs", "0", "31", "3"]
+    tie = ["--formats", "VHT", "--mcs", "4", "--n", "8", "--snrs", "9", "16",
+           "3"]
+    # the longest runs first, so that they overlap the rest
+    return {
+        "multihost_scaling": [py, "tools_torch/multihost_scaling.py",
+                              "--out", str(out / "multihost.json")],
+        "bench_snr_sweep": [py, "tools_torch/bench_snr_sweep.py",
+                            "--out", str(out / "snr.json")],
+        "bench_long": [py, "tools_torch/bench_long.py",
+                       "--out", str(out / "long.json")],
+        "bench": [py, "tools_torch/bench.py", "--reps", "5",
+                  "--out", str(out / "bench.json")],
+        "perf_sweep": per + ["--formats", "VHT", *sweep,
+                             "--out", str(out / "per_vht.json")],
+        "perf_sweep_lht": per + ["--formats", "L", "HT", "--mcs", "0", "1",
+                                 "2", "3", *sweep,
+                                 "--out", str(out / "per_lht.json")],
+        "perf_sweep_2ss": per + ["--nss", "2", "--formats", "VHT", "--mcs",
+                                 "3", *sweep,
+                                 "--out", str(out / "per_2ss.json")],
+        "perf_sweep_mu": per + ["--mu", "--mcs", "3", *sweep,
+                                "--out", str(out / "per_mu.json")],
+        "perf_sweep_card": per + [*tie, "--out", str(out / "tie_card.json"),
+                                  "--dump", str(out / "tie_card")],
+        "perf_sweep_cpu": per + [*tie, "--device", "cpu",
+                                 "--out", str(out / "tie_cpu.json"),
+                                 "--dump", str(out / "tie_cpu")],
+        "bench_tx": [py, "tools_torch/bench_tx.py",
+                     "--out", str(out / "tx.json")],
+        "bench_tx_mu": [py, "tools_torch/bench_tx.py", "--mu",
+                        "--out", str(out / "tx_mu.json")],
+        "bench_mu": [py, "tools_torch/bench_mu.py",
+                     "--out", str(out / "mu.json")],
+        "bench_daemon": [py, "tools_torch/bench_daemon.py", "--rates", "2,5",
+                         "--seconds", "3", "--resident-blocks", "3",
+                         "--out", str(out / "daemon.json")],
+        "latency_report": [py, "tools_torch/latency_report.py", "7", "3",
+                           "1,256", "--out", str(out / "latency.json")],
+    }
+
+
+def run_tools(runs: dict, lanes: int) -> dict:
+    """Every run as a subprocess, ``lanes`` at a time; name -> (exit code,
+    seconds, the end of its output)."""
+    root = Path(__file__).resolve().parent
+    todo, live, done = list(runs.items()), {}, {}
+    try:
+        while todo or live:
+            while todo and len(live) < lanes:
+                name, argv = todo.pop(0)
+                log_f = open(TOOLS_DIR / f"{name}.log", "w")
+                live[name] = (subprocess.Popen(
+                    argv, cwd=root, stdout=log_f, stderr=subprocess.STDOUT),
+                    log_f, time.perf_counter())
+            time.sleep(0.5)
+            for name, (p, log_f, tic) in list(live.items()):
+                if p.poll() is None and time.perf_counter() - tic < 900:
+                    continue
+                if p.poll() is None:
+                    p.kill()
+                p.wait()
+                log_f.close()
+                text = (TOOLS_DIR / f"{name}.log").read_text()
+                done[name] = (p.returncode, time.perf_counter() - tic,
+                              text[-3000:])
+                del live[name]
+                log(f"tools (j): {name} exited {p.returncode} in "
+                    f"{done[name][1]:.1f} s")
+    finally:
+        for p, log_f, _ in live.values():
+            p.kill()
+            p.wait()
+            log_f.close()
+    return done
+
+
+def check_sweep(name, blob, ref):
+    """Every configuration of a sweep against the JAX package's curve for
+    the same command (``PER_REFERENCE``, made by ``tools_tpu/perf_sweep.py``
+    on the CPU from the same seed): each point within 1/n of it (the one
+    LTF near-tie slot a point may differ by), PER 0 at 30 dB, and PER never
+    rising by more than 2/n from one point to the next unless the
+    reference rises by more than that at the same point (its receiver's
+    sync misses a few packets in the middle of some waterfalls)."""
+    for cfg, v in blob.items():
+        if cfg == "device":
+            continue
+        per, want, n = v["per"], ref[cfg]["per"], v["n"]
+        check(v["snr_db"] == ref[cfg]["snr_db"] and n == ref[cfg]["n"],
+              f"(j) {name} {cfg}: not the reference's sweep")
+        dev = max(abs(a - b) for a, b in zip(per, want))
+        check(dev <= 1.0 / n + 1e-12,
+              f"(j) {name} {cfg}: PER {per}, the JAX package's {want}")
+        check(v["snr_db"][-1] == 30.0 and per[-1] == 0.0,
+              f"(j) {name} {cfg}: PER {per[-1]} at {v['snr_db'][-1]} dB")
+        for i in range(len(per) - 1):
+            rise, ref_rise = per[i + 1] - per[i], want[i + 1] - want[i]
+            check(rise <= 2.0 / n + 1e-12 or ref_rise > 2.0 / n + 1e-12,
+                  f"(j) {name} {cfg}: PER rises by {rise} at "
+                  f"{v['snr_db'][i + 1]} dB (the reference by {ref_rise}): "
+                  f"{per}")
+
+
+def tool_kernels(blob, acc_launches: dict, shapes: set):
+    """Add every ``launches`` / ``k1_k2_shapes`` pair found in a tool's
+    JSON to the phase's totals."""
+    if isinstance(blob, dict):
+        if "launches" in blob and "k1_k2_shapes" in blob:
+            for k, v in blob["launches"].items():
+                acc_launches[k] = acc_launches.get(k, 0) + v
+            shapes.update(tuple(bt) for bt in blob["k1_k2_shapes"])
+        for v in blob.values():
+            if isinstance(v, (dict, list)):
+                tool_kernels(v, acc_launches, shapes)
+    elif isinstance(blob, list):
+        for v in blob:
+            tool_kernels(v, acc_launches, shapes)
+
+
+def phase_tools(torch, smi):
+    """(j) every harness tool of tools_torch/ on the card as a subprocess;
+    returns (the kernels' launch counts summed over the tools, K1/K2's
+    launch shapes, the tools line)."""
+    import shutil
+    torch.cuda.empty_cache()            # room for the tools' own processes
+    shutil.rmtree(TOOLS_DIR, ignore_errors=True)
+    TOOLS_DIR.mkdir(parents=True)
+    tic = time.perf_counter()
+    done = run_tools(tool_runs(TOOLS_DIR), TOOL_LANES)
+    for name, (rc, secs, tail) in done.items():
+        check(rc == 0, f"(j) {name} exited {rc} after {secs:.0f} s:\n{tail}")
+
+    def load(name):
+        return json.loads((TOOLS_DIR / name).read_text())
+    out = {"seconds": time.perf_counter() - tic, "lanes": TOOL_LANES,
+           "tool_seconds": {k: v[1] for k, v in done.items()}}
+
+    line = [ln for ln in done["bench"][2].splitlines()
+            if ln.startswith('{"metric"')]
+    check(len(line) == 1, "(j) bench printed no JSON line")
+    env = load("bench.json")
+    hi, lo = env["high_snr_32dB"], env["low_snr_floor_18dB"]
+    check(hi["n_det"] == B and hi["n_ok"] >= 0.99 * B,
+          f"(j) bench at 32 dB: {hi['n_ok']} ok, {hi['n_det']} detected")
+    out["bench"] = {"pkt_per_s": hi["pkt_per_s"], "ms_32dB":
+                    hi["ms_per_batch"], "ms_18dB": lo["ms_per_batch"],
+                    "n_ok_32dB": hi["n_ok"], "n_ok_18dB": lo["n_ok"]}
+
+    ref = json.loads(PER_REFERENCE.read_text())["sweeps"]
+    for name, f, kind in (("perf_sweep", "per_vht.json", "vht"),
+                          ("perf_sweep_lht", "per_lht.json", "lht"),
+                          ("perf_sweep_2ss", "per_2ss.json", "2ss"),
+                          ("perf_sweep_mu", "per_mu.json", "mu")):
+        blob = load(f)
+        check(blob["device"] == smi, f"(j) {name} ran on {blob['device']}")
+        check_sweep(name, blob, ref[kind])
+        out[name] = {k: v["per"] for k, v in blob.items() if k != "device"}
+    check(len(out["perf_sweep"]) == 9, "(j) perf_sweep: not VHT MCS0-8")
+    check(len(out["perf_sweep_lht"]) == 8,
+          "(j) perf_sweep_lht: not L and HT MCS0-3")
+    # one MCS at small n: the card's per-row and per-slot results are the
+    # CPU's (where the kernels' twins run)
+    name = "VHT_mcs4.npz"
+    card = np.load(TOOLS_DIR / "tie_card" / name)
+    cpu = np.load(TOOLS_DIR / "tie_cpu" / name)
+    for k in ("ok", "ltf_idx", "valid", "ok_slot", "digest"):
+        check(np.array_equal(card[k], cpu[k]),
+              f"(j) perf_sweep card != CPU in {k} (VHT MCS4)")
+    out["perf_sweep_card_eq_cpu"] = {"slots": int(card["ok_slot"].size),
+                                     "ok": int(card["ok_slot"].sum())}
+
+    pts = load("snr.json")["points"]
+    check(all(p["n_det"] == B for p in pts),
+          f"(j) bench_snr_sweep: detected {[p['n_det'] for p in pts]}")
+    check(pts[0]["launches"]["acs_sweep"] > 0
+          and pts[0]["launches"]["traceback_sweep"] > 0,
+          f"(j) bench_snr_sweep: K1/K2 did not launch at {pts[0]['snr_db']} "
+          f"dB: {pts[0]['launches']}")
+    out["bench_snr_sweep"] = [[p["snr_db"], p["n_ok"], p["ms_per_batch"],
+                               p["launches"]["acs_sweep"], p["path"]]
+                              for p in pts]
+    lg = load("long.json")
+    check(lg["n_det"] == LONG_B and lg["n_ok"] >= 0.99 * LONG_B,
+          f"(j) bench_long: {lg['n_ok']} ok, {lg['n_det']} detected")
+    check(pad64(lg["n_trellis"]) == T_LONG, f"(j) bench_long T {lg}")
+    out["bench_long"] = {k: lg[k] for k in ("n_trellis", "n_ok", "n_det",
+                                            "ms_per_batch", "path")}
+    for name, f, tol in (("bench_tx", "tx.json", 2e-6),
+                         ("bench_tx_mu", "tx_mu.json", 2e-5)):
+        (tx,) = load(f).values()
+        check(tx["max_abs_err_vs_gold"] < tol,
+              f"(j) {name}: {tx['max_abs_err_vs_gold']} from the gold model")
+        out[name] = {"per_s": tx["value"], "ms": tx["ms_per_batch"]}
+    mu = load("mu.json")
+    check(mu["su2"]["n_ok"] == mu["su2"]["n_det"] == mu["batch"]
+          and mu["mu0"]["n_ok"] == mu["mu0"]["n_det"] == mu["batch"],
+          f"(j) bench_mu: {mu['su2']}, {mu['mu0']}")
+    out["bench_mu"] = {k: mu[k] for k in (
+        "su_2x2_vht_mcs7_500B_pkts_per_s", "mu_sta_vht_mcs3_pkts_per_s")}
+    dm = load("daemon.json")
+    res = dm["resident_block_processing"]
+    check(res["ok_per_block"] == res["pkts_per_block"] > 0,
+          f"(j) bench_daemon resident: {res}")
+    out["bench_daemon"] = {"resident_msps": res["msps"],
+                           "max_lossless": dm["max_lossless"] and
+                           dm["max_lossless"]["rate_msps"]}
+    lat = load("latency.json")
+    lost = sum(v["lost"] for v in lat["daemon_rtt"].values())
+    check(lost == 0 and all(v["ok"] == v["of"] for v in
+                            lat["fused_chain"].values()),
+          f"(j) latency_report lost {lost}: {lat}")
+    out["latency_report"] = {k: v.get("p50_ms")
+                             for k, v in lat["daemon_rtt"].items()}
+    mh = load("multihost.json")       # the tool raises on a missed packet
+    check([c["n_proc"] for c in mh["curve"]["sp"]] == [1, 2, 4],
+          f"(j) multihost_scaling: {mh['curve']}")
+    out["multihost_scaling"] = {m: [c.get("ms_per_step_max",
+                                          c.get("ms_per_chain_max"))
+                                    for c in mh["curve"][m]]
+                                for m in ("dp", "sp")}
+
+    launches, shapes = {}, set()
+    for f in sorted(TOOLS_DIR.glob("*.json")):
+        if f.name not in ("tie_cpu.json",):
+            tool_kernels(load(f.name), launches, shapes)
+    check(launches["acs_sweep"] > 0 and launches["traceback_sweep"] > 0,
+          f"(j) the tools never launched K1/K2: {launches}")
+    out["launches"] = launches
+    out["card"] = smi
+    log(json.dumps({"tools": out}))
+    return launches, shapes
+
+
+def hold_grouped(torch, VK, shapes: set, what: str):
+    """``hold_k1_k2`` at each (B, T) of ``shapes`` on random LLRs, the
+    shapes of one T in one call.  Returns the max errors."""
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(71)
+    errs = [0.0, 0.0]
+    by_t = {}
+    for b, t in sorted(shapes):
+        by_t.setdefault(t, []).append(b)
+    for t, bs in sorted(by_t.items()):
+        tic = time.perf_counter()
+        llrs = [llr_pairs(torch, rng, dev, b, t - 20) for b in bs]
+        e = hold_k1_k2(torch, VK, llrs, f"T={t}, B in {bs} ({what})")
+        errs = [max(a, b) for a, b in zip(errs, e)]
+        del llrs
+        log(f"kernels: held at T={t} in {time.perf_counter() - tic:.2f} s "
+            f"({sum(bs)} rows)")
+    return errs
+
+
 def hold_at_path_shapes(torch, VK, paths: dict, held: set):
-    """K1/K2 against their twins (``hold_k1_k2``) at each (B, T) that a
+    """K1/K2 against their twins (``hold_grouped``) at each (B, T) that a
     path launched them at and no earlier phase held them at; ``paths``
     maps a path's name to its set of shapes.  Returns (max errors, the
     sorted [B, T] list of each path)."""
-    dev = torch.device("cuda", 0)
-    rng = np.random.default_rng(67)
-    errs = [0.0, 0.0]
-    for b, t in sorted(set().union(*paths.values()) - held):
-        tic = time.perf_counter()
-        e = hold_k1_k2(torch, VK, llr_pairs(torch, rng, dev, b, t),
-                       f"the path shape T={t} B={b}")
-        errs = [max(x, y) for x, y in zip(errs, e)]
-        log(f"kernels: held at T={t} B={b} in "
-            f"{time.perf_counter() - tic:.2f} s")
+    errs = hold_grouped(torch, VK, set().union(*paths.values()) - held,
+                        "the path shapes")
     return errs, {p: [list(bt) for bt in sorted(v)] for p, v in paths.items()}
 
 
@@ -1893,6 +2158,7 @@ def main() -> int:
     from gr_ieee80211_tpu_torch.ops import frontend as FE
     from gr_ieee80211_tpu_torch.ops import viterbi_kernels as VK
     from gr_ieee80211_tpu_torch.ops.cplx import CF, from_numpy_cf
+    from tools_torch import bench as TB
     from tools_torch import viterbi_designs as VD
     check_self_contained()
 
@@ -1924,7 +2190,7 @@ def main() -> int:
 
     kernels = (phase_kernels(torch, VK, VD, earlier)
                + phase_kernels_extra(torch, VK, VD, FE, earlier))
-    bench = bench_streams()
+    bench = TB.bench_streams(B)         # bench.py's streams
     launches, chain_ok, chain_res = phase_chain(torch, VK, CL, PRX,
                                                 from_numpy_cf, bench)
     phase_reference(torch, PRX, from_numpy_cf, bench)
@@ -1942,14 +2208,21 @@ def main() -> int:
     mesh_launches, mesh_shapes = phase_mesh(
         torch, CL, PRX, CF, from_numpy_cf, bench, chain_res, station0,
         torch.device("cuda", 0), smi)
+    tools_launches, tools_shapes = phase_tools(torch, smi)
     # K1/K2 at every shape the engine, the streamer and the sharded
     # programs launched them at (the chain's and the MU path's shapes were
     # held above)
+    # and at every shape the tools launched them at, with bench_long's
+    # trellis among them (random LLRs at its chunk when it stayed on the
+    # algebraic fast path)
     held = {(B, T_KERNEL), (B_BUCKET, T_KERNEL)} | {
         (h["B"], h["T"]) for h in mu_out["mu_k1_k2_held_at"]}
+    tool_shapes = set(tools_shapes)
+    if not any(t == T_LONG for _, t in tool_shapes):
+        tool_shapes.add((128, T_LONG))
     path_errs, held_at = hold_at_path_shapes(
         torch, VK, {"engine": engine_shapes, "stream": stream_shapes,
-                    "mesh": mesh_shapes}, held)
+                    "mesh": mesh_shapes, "tools": tool_shapes}, held)
     check(stream_shapes and engine_shapes and mesh_shapes,
           "no K1/K2 launch shapes recorded on the engine, stream or mesh "
           "path")
@@ -1967,6 +2240,7 @@ def main() -> int:
             k["held_at_engine"] = held_at["engine"]
             k["held_at_stream"] = held_at["stream"]
             k["held_at_mesh"] = held_at["mesh"]
+            k["held_at_tools"] = held_at["tools"]
         k["launches_chain"] = launches[name]
         k["launches_engine"] = engine_launches[name]
         k["launches_tx_su"] = tx_launches[name]
@@ -1974,8 +2248,10 @@ def main() -> int:
         k["launches_mu_lo"] = mu_launches["mu_lo"][name]
         k["launches_stream"] = stream_launches[name]
         k["launches_mesh"] = mesh_launches[name]
+        k["launches_tools"] = tools_launches[name]
         k["launches"] = sum(k[f"launches_{p}"] for p in (
-            "chain", "engine", "tx_su", "mu", "mu_lo", "stream", "mesh"))
+            "chain", "engine", "tx_su", "mu", "mu_lo", "stream", "mesh",
+            "tools"))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

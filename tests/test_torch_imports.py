@@ -48,7 +48,10 @@ def test_port_has_the_expected_modules():
     for tool in ("viterbi_designs", "rx_daemon", "tx_daemon", "cmu_demo",
                  "mac_example_rx", "mac_example_tx", "pkt_gen_example",
                  "pkt_gen_ow_example", "pkt_proc_example", "cmu_offline",
-                 "draw_bin", "mesh_worker"):
+                 "draw_bin", "mesh_worker", "timing", "bench",
+                 "bench_snr_sweep", "bench_long", "perf_sweep", "bench_tx",
+                 "bench_mu", "bench_daemon", "latency_report",
+                 "multihost_scaling", "stage_times", "chain_time"):
         assert f"tools_torch.{tool}" in mods
     assert not _forbidden(PORT) and _forbidden("gr_ieee80211_tpu.spec")
     assert _forbidden("jax.numpy") and _forbidden("gr_ieee80211_tpu")

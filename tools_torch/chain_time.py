@@ -38,7 +38,8 @@ def make(path: str) -> int:
     import numpy as np
     sys.path.insert(0, str(HERE))
     import chip_smoke as CS
-    cfg, mpdu, _, _, streams = CS.bench_streams()
+    from tools_torch import bench
+    cfg, mpdu, _, _, streams = bench.bench_streams(CS.B)
     daemon, sent = CS.daemon_stream(np.random.default_rng(23))
     np.savez(path, hi=streams[CS.SNR_HI], lo=streams[CS.SNR_LO],
              cfg=np.array([int(cfg.fmt), cfg.mcs, cfg.nss, cfg.length,

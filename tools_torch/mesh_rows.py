@@ -33,8 +33,9 @@ def main(argv: list[str]) -> int:
     from gr_ieee80211_tpu_torch.models import rx as PRX
     from gr_ieee80211_tpu_torch.ops.cplx import from_numpy_cf
     from gr_ieee80211_tpu_torch.parallel import mesh as M
+    from tools_torch import bench
     margins = [int(a) for a in argv] or [0, 1, 64]
-    cfg, mpdu, _, _, streams = CS.bench_streams()
+    cfg, mpdu, _, _, streams = bench.bench_streams(CS.B)
     dev = torch.device("cuda", 0)
     st = from_numpy_cf(streams[CS.SNR_LO], dev)
     st1 = from_numpy_cf(streams[CS.SNR_LO][None], dev)

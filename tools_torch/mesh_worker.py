@@ -4,7 +4,7 @@
 
     python3 tools_torch/mesh_worker.py RANK WORLD PORT {sp,dp} \\
         [--local-shards 4] [--backend nccl|gloo] [--device cuda|cpu] \\
-        [--iq FILE.npy] [--max-pkts 16] [--b-local 8] [--reps 3]
+        [--iq FILE.npy] [--n-pkt 16] [--max-pkts 16] [--b-local 8] [--reps 3]
 
 Joins a process group of WORLD processes at tcp://localhost:PORT with
 --local-shards shards of its own, ingests only this rank's slice of the
@@ -16,12 +16,13 @@ zeroed, then --reps more times on the clock.  It prints
     RESULT ok=<n_ok> det=<n_det>      global counts, the same on every rank
     SPTIME ms=<median> | DPTIME ms=<median>   host clock, synchronized
     LAUNCHES {"acs_sweep": n, ...}    this rank's launches in the first run
+    SHAPES [[B, T], ...]              the (B, T) K1/K2 launched at in it
 
 Input: ``--iq FILE.npy`` is memory-mapped and sliced by rank (sp: an (N,)
 complex64 stream; dp: (B, n_samp) windows), its config beside it in
 FILE.json (:func:`save_capture` writes both).  Without it, the built-in
-stream of :func:`build_stream` (16 VHT MCS2 packets), whose dp windows
-are --b-local copies of its first packet per rank.
+stream of :func:`build_stream` (--n-pkt VHT MCS2 packets), whose dp
+windows are --b-local copies of its first packet per rank.
 """
 from __future__ import annotations
 
@@ -88,6 +89,8 @@ def main(argv=None) -> int:
     ap.add_argument("--backend", default="nccl", choices=("nccl", "gloo"))
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--iq", default=None)
+    ap.add_argument("--n-pkt", type=int, default=16,
+                    help="packets of the built-in stream")
     ap.add_argument("--max-pkts", type=int, default=16,
                     help="packets a shard decodes at most (sp)")
     ap.add_argument("--b-local", type=int, default=8,
@@ -107,7 +110,7 @@ def main(argv=None) -> int:
         if a.iq:
             cfg, mpdu_len, data = load_capture(a.iq)
         else:
-            cfg, mpdu_len, data = build_stream()
+            cfg, mpdu_len, data = build_stream(a.n_pkt)
         mesh = D.global_mesh((a.mode,), device=a.device)
         if a.mode == "sp":
             n = len(data) // a.world
@@ -139,6 +142,8 @@ def main(argv=None) -> int:
         n_ok, n_det = once()
         sync()
         launches = CL.launch_counts()
+        shapes = CL.launch_shapes()
+        shapes = sorted(shapes["acs_sweep"] | shapes["traceback_sweep"])
         ts = []
         for _ in range(a.reps):
             tic = time.perf_counter()
@@ -150,6 +155,7 @@ def main(argv=None) -> int:
             print(f"{a.mode.upper()}TIME ms={statistics.median(ts):.1f}",
                   flush=True)
         print(f"LAUNCHES {json.dumps(launches)}", flush=True)
+        print(f"SHAPES {json.dumps([list(bt) for bt in shapes])}", flush=True)
     finally:
         import torch.distributed as dist
         dist.destroy_process_group()
