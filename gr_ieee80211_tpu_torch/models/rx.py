@@ -43,6 +43,7 @@ from ..ops import viterbi as V
 from ..ops.cplx import (CF, cstack, csum, from_numpy_cf, from_numpy_cf_bf16,
                         from_numpy_cf_i8)
 from ..ops.fastdecode import adaptive_decode
+from ..utils import trace
 
 # offsets relative to ltf_idx (nominal L-LTF window start)
 LSIG_GI = 128
@@ -173,7 +174,8 @@ def _sync_core(stream: CF, trigs: torch.Tensor):
 def _perm_on(name: str, device: torch.device) -> torch.Tensor:
     perm = (T.interleave_perm_legacy(1) if name == "legacy"
             else T.interleave_perm_nl(1))
-    return torch.from_numpy(np.asarray(perm, np.int64)).to(device)
+    with trace.sync("table_upload"):
+        return torch.from_numpy(np.asarray(perm, np.int64)).to(device)
 
 
 def _sig_core(stream: CF, ltf_idx: torch.Tensor, cfo: torch.Tensor):
@@ -298,8 +300,9 @@ def _crc8_affine() -> tuple[np.ndarray, np.ndarray]:
 @functools.lru_cache(maxsize=None)
 def _crc8_affine_on(device: torch.device):
     M, c0 = _crc8_affine()
-    return torch.from_numpy(M.T.copy()).to(device), \
-        torch.from_numpy(c0).to(device)
+    with trace.sync("table_upload", 2):
+        return torch.from_numpy(M.T.copy()).to(device), \
+            torch.from_numpy(c0).to(device)
 
 
 def _sigb_crc_ok(sigb_bits: torch.Tensor,
@@ -330,8 +333,10 @@ def _sigb_reencode_matrix() -> np.ndarray:
 
 @functools.lru_cache(maxsize=None)
 def _sigb_consts(device: torch.device):
-    return (torch.from_numpy(_sigb_reencode_matrix()).to(device),
-            torch.from_numpy(np.asarray(T.PILOT_VHT, np.float32)).to(device))
+    with trace.sync("table_upload", 2):
+        return (torch.from_numpy(_sigb_reencode_matrix()).to(device),
+                torch.from_numpy(np.asarray(T.PILOT_VHT, np.float32)
+                                 ).to(device))
 
 
 def _sigb_snr(xs: CF, h: CF, data_start: int) -> torch.Tensor:
@@ -372,7 +377,8 @@ def _dd_gate(xs: CF, cfg: PhyConfig) -> bool:
     lo = _DD_GATE_LO.get((cfg.nbpscs, cfg.cr), 0.0)
     pred = ((sd < 2.0 * 10.0 ** (DD_GATE_SNR_DB / 10.0) * dsum)
             & (sd > 2.0 * 10.0 ** (lo / 10.0) * dsum))
-    return bool(pred.item())
+    with trace.sync("dd_gate"):
+        return bool(pred.item())
 
 
 def _payload_core(cfg: PhyConfig, stream: CF, ltf_idx: torch.Tensor,
@@ -391,43 +397,57 @@ def _payload_core(cfg: PhyConfig, stream: CF, ltf_idx: torch.Tensor,
     whether the dd pass ran (``"dd"``)."""
     data_start = _data_start(cfg)
     n_need = data_start + 80 * cfg.nsym + 16
-    xs = cstack([FE.derotate_batch(stream[r], ltf_idx, cfo, n_need,
-                                   low_prec=True)
-                 for r in range(nrx)], dim=1)            # (B, nrx, n)
+    with trace.span("rx.payload.derotate"):
+        xs = cstack([FE.derotate_batch(stream[r], ltf_idx, cfo, n_need,
+                                       low_prec=True)
+                     for r in range(nrx)], dim=1)        # (B, nrx, n)
     pidx = OF._idx("PILOT_IDX", xs.device)
-    if cfg.fmt == Fmt.L:
-        h0 = OF.legacy_chanest(xs[:, 0], 0)
-        h = h0[:, None, None, :]
-        pilot_h = h0[:, pidx][:, None, :]
-    else:
-        h, pilot_h = OF.nl_chanest(xs, 208 + 160 + 80, cfg.nltf, cfg.nss)
-        if cfg.nss == 1:
-            sigb_gi = data_start - 80 if cfg.fmt == Fmt.VHT else None
-            h, pilot_h = OF.refine_chanest_siso(xs, h, pilot_h, fmt=cfg.fmt,
-                                                sigb_gi=sigb_gi)
-        if cfg.fmt == Fmt.HT:
-            pilot_h = csum(h[:, :, :, pidx], dim=2)
-    grids = OF.fft_syms(cstack([OF.extract_sym_windows(xs[:, r], data_start,
-                                                       cfg.nsym)
-                                for r in range(nrx)], dim=1))
-    if cfg.nss == 1 and _dd_gate(xs, cfg):
-        h, pilot_h = OF.refine_chanest_data(grids, h, pilot_h, cfg)
-        if record is not None:
-            record.append("dd")
-    llr = OF.equalize_and_demap(grids, h, pilot_h, cfg)
-    coded = OF.deinterleave_deparse(llr, cfg)        # (B, nsym*ncbps)
-    bits = adaptive_decode(coded, cfg.cr, cfg.n_trellis, n_real=n_real,
-                           record=record)
-    data = OF.descramble_bits(bits)
-    psdu_bits = data[:, 16: 16 + 8 * cfg.psdu_len]
-    out = {"psdu": OF.bits_to_bytes_batch(psdu_bits), "service": data[:, :16]}
+    with trace.span("rx.payload.chanest"):
+        if cfg.fmt == Fmt.L:
+            h0 = OF.legacy_chanest(xs[:, 0], 0)
+            h = h0[:, None, None, :]
+            pilot_h = h0[:, pidx][:, None, :]
+        else:
+            h, pilot_h = OF.nl_chanest(xs, 208 + 160 + 80, cfg.nltf, cfg.nss)
+            if cfg.nss == 1:
+                sigb_gi = data_start - 80 if cfg.fmt == Fmt.VHT else None
+                h, pilot_h = OF.refine_chanest_siso(xs, h, pilot_h,
+                                                    fmt=cfg.fmt,
+                                                    sigb_gi=sigb_gi)
+            if cfg.fmt == Fmt.HT:
+                pilot_h = csum(h[:, :, :, pidx], dim=2)
+    with trace.span("rx.payload.fft"):
+        grids = OF.fft_syms(cstack([
+            OF.extract_sym_windows(xs[:, r], data_start, cfg.nsym)
+            for r in range(nrx)], dim=1))
+    if cfg.nss == 1:
+        with trace.span("rx.payload.dd_gate"):
+            dd = _dd_gate(xs, cfg)
+        if dd:
+            with trace.span("rx.payload.dd"):
+                h, pilot_h = OF.refine_chanest_data(grids, h, pilot_h, cfg)
+            if record is not None:
+                record.append("dd")
+    with trace.span("rx.payload.demap"):
+        llr = OF.equalize_and_demap(grids, h, pilot_h, cfg)
+        coded = OF.deinterleave_deparse(llr, cfg)    # (B, nsym*ncbps)
+    with trace.span("rx.payload.decode"):
+        bits = adaptive_decode(coded, cfg.cr, cfg.n_trellis, n_real=n_real,
+                               record=record)
+    with trace.span("rx.payload.bytes"):
+        data = OF.descramble_bits(bits)
+        psdu_bits = data[:, 16: 16 + 8 * cfg.psdu_len]
+        out = {"psdu": OF.bits_to_bytes_batch(psdu_bits),
+               "service": data[:, :16]}
     if want_sssnr and cfg.fmt == Fmt.VHT and cfg.nss == 1:
-        out["sssnr0"] = _sigb_snr(xs, h, data_start)
-    if cfg.fmt == Fmt.VHT and mpdu_len > 4:
-        mpdu_bits = psdu_bits[:, 32: 32 + 8 * mpdu_len]
-        out["mpdu_fcs_ok"] = CRC.fcs_ok_batch(mpdu_bits, 8 * mpdu_len)
-    elif cfg.fmt != Fmt.VHT and not cfg.ampdu and cfg.psdu_len > 4:
-        out["fcs_ok"] = CRC.fcs_ok_batch(psdu_bits, 8 * cfg.psdu_len)
+        with trace.span("rx.payload.sigb_snr"):
+            out["sssnr0"] = _sigb_snr(xs, h, data_start)
+    with trace.span("rx.payload.crc"):
+        if cfg.fmt == Fmt.VHT and mpdu_len > 4:
+            mpdu_bits = psdu_bits[:, 32: 32 + 8 * mpdu_len]
+            out["mpdu_fcs_ok"] = CRC.fcs_ok_batch(mpdu_bits, 8 * mpdu_len)
+        elif cfg.fmt != Fmt.VHT and not cfg.ampdu and cfg.psdu_len > 4:
+            out["fcs_ok"] = CRC.fcs_ok_batch(psdu_bits, 8 * cfg.psdu_len)
     return out
 
 
@@ -518,7 +538,8 @@ def rx_chain_ok_mu(cfg: PhyConfig, stream: CF, n_total: int, own: int,
     ltf_idx, ltf_idx_c, cfo, valid = _detect_sync(cfg, stream, max_pkts, nrx,
                                                   n_need=n_need)
     sigb_bits = _mu_sigb_core(stream[0], ltf_idx_c, cfo, n_total, own)
-    pw = torch.tensor([1, 2, 4, 8], device=sigb_bits.device)
+    with trace.sync("const_upload"):
+        pw = torch.tensor([1, 2, 4, 8], device=sigb_bits.device)
     sigb_mcs = (sigb_bits[:, 16:20].to(torch.int64) * pw).sum(dim=1)
     out = _payload_core_mu(cfg, stream, ltf_idx_c, cfo, n_total, own,
                            nrx=nrx, mpdu_len=mpdu_len, record=record)
@@ -609,12 +630,20 @@ def _ndp_chan_core(stream: CF, ltf_idx: torch.Tensor, cfo: torch.Tensor,
     return h
 
 
-def _host(x):
-    return x.cpu().numpy() if isinstance(x, torch.Tensor) else x
+def _host(x, site: str):
+    """A device tensor read back to numpy (one synchronization, counted
+    at ``site``); anything else as it is."""
+    if not isinstance(x, torch.Tensor):
+        return x
+    with trace.sync(site):
+        return x.cpu().numpy()
 
 
 def _to_numpy_c(h: CF) -> np.ndarray:
-    return h.re.cpu().numpy() + 1j * h.im.cpu().numpy()
+    """An NDP channel estimate read back: two synchronizations."""
+    with trace.sync("ndp_readback", 2):
+        re, im = h.re.cpu(), h.im.cpu()
+    return re.numpy() + 1j * im.numpy()
 
 
 # ---------------------------------------------------------------------------
@@ -662,16 +691,25 @@ class RxEngine:
     def detect(self, stream0: CF, max_out: int = 4096) -> np.ndarray:
         """Candidate trigger indices of one antenna's (N,) device stream."""
         m4 = FE.stf_metric_strided(stream0)
-        cand = FE.detect_plateaus_strided(m4, max_out=max_out).cpu().numpy()
+        cand = _host(FE.detect_plateaus_strided(m4, max_out=max_out),
+                     "detect")
         return dedup_triggers(cand[cand >= 0])
 
     # -- full pipeline -----------------------------------------------------
     def process(self, stream: np.ndarray) -> list[RxResult]:
         stream = np.atleast_2d(stream)
-        return self.process_device(self._upload(stream), stream.shape[1])
+        with trace.in_block(self._new_block()):
+            return self._process(self._upload(stream), stream.shape[1])
+
+    def _new_block(self) -> int:
+        trace.count("rx.blocks")
+        return trace.new_block()
 
     def _upload(self, stream: np.ndarray) -> CF:
-        return _INGEST[self.ingest](stream, self.device)
+        # one synchronizing copy a tensor (re, im; i8 also its scale)
+        n = 3 if self.ingest == "i8" else 2
+        with trace.span("rx.upload"), trace.sync("upload", n):
+            return _INGEST[self.ingest](stream, self.device)
 
     def _max_pkts(self, n_stream: int) -> int:
         # capacity from the real minimum trigger spacing (dedup keeps
@@ -686,28 +724,41 @@ class RxEngine:
         speculative one-pass decode); returns a handle for
         :meth:`finish_process`."""
         stream = np.atleast_2d(stream)
+        bid = self._new_block()
+        with trace.in_block(bid):
+            return self._begin(stream) + (bid,)
+
+    def _begin(self, stream: np.ndarray):
         dev = self._upload(stream)
         n_stream = stream.shape[1]
         spec = self._spec_canon if self.speculate else None
         if spec is not None:
+            trace.count("rx.spec.armed_blocks")
             canon, nreal = spec
             max_pkts = self._max_pkts(n_stream)
             nr = torch.full((max_pkts,), nreal, dtype=torch.int32,
                             device=self.device)
-            outs = _spec_core(canon, dev, max_pkts, nrx=self.nrx, n_real=nr)
+            with trace.span("rx.spec"):
+                outs = _spec_core(canon, dev, max_pkts, nrx=self.nrx,
+                                  n_real=nr)
             return (dev, n_stream, ("spec", spec) + outs)
-        meta_d, bits_d = self._front_dispatch(dev, n_stream)
+        with trace.span("rx.front"):
+            meta_d, bits_d = self._front_dispatch(dev, n_stream)
         return (dev, n_stream, ("front", meta_d, bits_d))
 
     def finish_process(self, handle) -> list[RxResult]:
         """Read a :meth:`begin_process` handle back and run classification
         + bucket decodes to completion."""
-        dev, n_stream, rest = handle
-        if rest[0] == "spec":
-            _, spec, meta_d, bits_d, psdu_d, sssnr_d = rest
-            return self._finish(dev, n_stream, meta_d, bits_d,
-                                spec=(spec, _host(psdu_d), _host(sssnr_d)))
-        return self._finish(dev, n_stream, rest[1], rest[2])
+        dev, n_stream, rest, bid = handle
+        with trace.in_block(bid):
+            if rest[0] == "spec":
+                _, spec, meta_d, bits_d, psdu_d, sssnr_d = rest
+                with trace.span("rx.readback"):
+                    psdu = _host(psdu_d, "spec_readback")
+                    sssnr = _host(sssnr_d, "spec_readback")
+                return self._finish(dev, n_stream, meta_d, bits_d,
+                                    spec=(spec, psdu, sssnr))
+            return self._finish(dev, n_stream, rest[1], rest[2])
 
     def _front_dispatch(self, dev: CF, n_stream: int):
         return _front_core(dev[0], self._max_pkts(n_stream))
@@ -715,12 +766,19 @@ class RxEngine:
     def process_device(self, dev: CF, n_stream: int) -> list[RxResult]:
         """Run the full engine on an already device-resident (nrx, N) CF
         stream."""
-        meta_d, bits_d = self._front_dispatch(dev, n_stream)
+        with trace.in_block(self._new_block()):
+            return self._process(dev, n_stream)
+
+    def _process(self, dev: CF, n_stream: int) -> list[RxResult]:
+        with trace.span("rx.front"):
+            meta_d, bits_d = self._front_dispatch(dev, n_stream)
         return self._finish(dev, n_stream, meta_d, bits_d)
 
     def _finish(self, dev: CF, n_stream: int, meta_d, bits_d,
                 spec=None) -> list[RxResult]:
-        meta, sig_bits = _host(meta_d), _host(bits_d)
+        with trace.span("rx.readback"):
+            meta = _host(meta_d, "front_readback")
+            sig_bits = _host(bits_d, "front_readback")
         keep = meta[:, 5] > 0.5
         fits = meta[keep, 6] > 0.5 if spec is not None else None
         meta, sig_bits = meta[keep], sig_bits[keep]
@@ -742,51 +800,55 @@ class RxEngine:
         results: list[RxResult | None] = [None] * len(ltf_idx)
         seen_canons: set = set()
         spec_canon, spec_psdu, spec_sssnr = spec if spec else (None,) * 3
-        for i in range(len(ltf_idx)):
-            key = sig_bits[i].tobytes()
-            ent = self._cls_cache.get(key)
-            if ent is None:
-                lsig = S.parse_lsig(lsig_b[i])
-                ent = ((None, None) if not lsig.ok
-                       else self._classify(lsig, ht_b[i], vht_b[i]))
-                if len(self._cls_cache) > 65536:
-                    self._cls_cache.clear()
-                self._cls_cache[key] = ent
-            cfg, ndp = ent
-            if ndp is not None:
-                kinds.append(("ndp", ndp))
-                continue
-            if cfg is None:
-                kinds.append(None)
-                continue
-            if isinstance(cfg, tuple):          # ("mu", siga, lsig)
-                kinds.append(cfg)
-                continue
-            canon = canonical_cfg(cfg)
-            if ltf_idx[i] + _data_start(canon) + 80 * canon.nsym + 16 \
-                    > n_stream:
-                # padded window overruns the block: fall back to exact shape
-                canon = cfg
-            if ltf_idx[i] + _data_start(cfg) + 80 * cfg.nsym + 16 \
-                    > n_stream:
-                kinds.append(None)
-                continue
-            seen_canons.add((canon, cfg.n_trellis))
-            if (spec_canon is not None
-                    and (canon, cfg.n_trellis) == spec_canon and fits[i]
-                    and i < len(spec_psdu)):
-                # speculation hit: the one-pass decode already has this row
-                # (kept row i == compacted psdu row i)
-                pb = spec_psdu[i][: cfg.psdu_len].tobytes()
-                ss = (float(spec_sssnr[i])
-                      if cfg.fmt == Fmt.VHT and cfg.nss == 1 else None)
-                results[i] = self._mk_data_result(
-                    cfg, pb, int(ltf_idx[i]), float(cfo[i]), int(trigs[i]),
-                    float(snr_db[i]), float(rssi[i]), ss)
+        with trace.span("rx.classify"):
+            for i in range(len(ltf_idx)):
+                key = sig_bits[i].tobytes()
+                ent = self._cls_cache.get(key)
+                if ent is None:
+                    lsig = S.parse_lsig(lsig_b[i])
+                    ent = ((None, None) if not lsig.ok
+                           else self._classify(lsig, ht_b[i], vht_b[i]))
+                    if len(self._cls_cache) > 65536:
+                        self._cls_cache.clear()
+                    self._cls_cache[key] = ent
+                cfg, ndp = ent
+                if ndp is not None:
+                    kinds.append(("ndp", ndp))
+                    continue
+                if cfg is None:
+                    kinds.append(None)
+                    continue
+                if isinstance(cfg, tuple):          # ("mu", siga, lsig)
+                    kinds.append(cfg)
+                    continue
+                canon = canonical_cfg(cfg)
+                if ltf_idx[i] + _data_start(canon) + 80 * canon.nsym + 16 \
+                        > n_stream:
+                    # padded window overruns the block: exact shape
+                    canon = cfg
+                if ltf_idx[i] + _data_start(cfg) + 80 * cfg.nsym + 16 \
+                        > n_stream:
+                    kinds.append(None)
+                    continue
+                seen_canons.add((canon, cfg.n_trellis))
+                if (spec_canon is not None
+                        and (canon, cfg.n_trellis) == spec_canon and fits[i]
+                        and i < len(spec_psdu)):
+                    # speculation hit: the one-pass decode already has this
+                    # row (kept row i == compacted psdu row i)
+                    trace.count("rx.spec.hits")
+                    pb = spec_psdu[i][: cfg.psdu_len].tobytes()
+                    ss = (float(spec_sssnr[i])
+                          if cfg.fmt == Fmt.VHT and cfg.nss == 1 else None)
+                    results[i] = self._mk_data_result(
+                        cfg, pb, int(ltf_idx[i]), float(cfo[i]),
+                        int(trigs[i]), float(snr_db[i]), float(rssi[i]), ss)
+                    kinds.append(("data", cfg))
+                    continue
+                if spec_canon is not None:
+                    trace.count("rx.spec.misses")
+                buckets.setdefault(canon, []).append((i, cfg))
                 kinds.append(("data", cfg))
-                continue
-            buckets.setdefault(canon, []).append((i, cfg))
-            kinds.append(("data", cfg))
         for canon, all_items in buckets.items():
             # cap the bucket batch so the decision planes (n_trellis x 64 x
             # B bytes) stay within ~2 GB (the reference's cap)
@@ -802,11 +864,12 @@ class RxEngine:
             if ki is not None and ki[0] == "ndp":
                 ndp_groups.setdefault(ki[1], []).append(i)
         for nsts, idxs in ndp_groups.items():
-            sel = np.zeros(_pad_batch(len(idxs)), np.int64)
-            sel[: len(idxs)] = idxs
-            h = _ndp_chan_core(dev, self._rows(ltf_idx[sel]),
-                               self._rows(cfo[sel]), nsts, self.nrx)
-            hc = _to_numpy_c(h)
+            with trace.span("rx.ndp"):
+                sel = np.zeros(_pad_batch(len(idxs)), np.int64)
+                sel[: len(idxs)] = idxs
+                h = _ndp_chan_core(dev, self._rows(ltf_idx[sel]),
+                                   self._rows(cfo[sel]), nsts, self.nrx)
+                hc = _to_numpy_c(h)
             for j, i in enumerate(idxs):
                 r = RxResult(True, Fmt.VHT, 0, nsts, int(ltf_idx[i]),
                              float(cfo[i]), is_ndp=True, trig=int(trigs[i]),
@@ -825,7 +888,8 @@ class RxEngine:
         return [r for r in results if r is not None]
 
     def _rows(self, a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+        with trace.sync("rows"):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
     def _mk_data_result(self, cfg: PhyConfig, pb: bytes, ltf_idx: int,
                         cfo: float, trig: int, snr_db: float, rssi: float,
@@ -836,15 +900,16 @@ class RxEngine:
         if sssnr is not None:
             r.sssnr0 = sssnr
         r.psdu = pb
-        if cfg.fmt == Fmt.VHT:
-            r.mpdus = deagg_vht(pb)
-            r.ok = len(r.mpdus) > 0
-        elif cfg.fmt == Fmt.HT and cfg.ampdu:
-            r.mpdus = MAC.ampdu_deaggregate(pb, ht=True)
-            r.ok = len(r.mpdus) > 0
-        else:
-            r.ok = GB.fcs_ok(pb)
-            r.mpdus = [pb] if r.ok else []
+        with trace.span("rx.assemble"):
+            if cfg.fmt == Fmt.VHT:
+                r.mpdus = deagg_vht(pb)
+                r.ok = len(r.mpdus) > 0
+            elif cfg.fmt == Fmt.HT and cfg.ampdu:
+                r.mpdus = MAC.ampdu_deaggregate(pb, ht=True)
+                r.ok = len(r.mpdus) > 0
+            else:
+                r.ok = GB.fcs_ok(pb)
+                r.mpdus = [pb] if r.ok else []
         return r
 
     def _decode_bucket(self, dev: CF, canon: PhyConfig, items, ltf_idx, cfo,
@@ -854,22 +919,26 @@ class RxEngine:
         decode (>= _CANON_MERGE_STEPS of trellis margin)."""
         nb = len(items)
         pad = _pad_batch(nb)
-        sel = np.zeros(pad, np.int64)
-        sel[:nb] = [i for i, _ in items]
-        n_real = np.full(pad, canon.n_trellis, np.int32)
-        n_real[:nb] = [c.n_trellis for _, c in items]
-        want_sssnr = canon.fmt == Fmt.VHT and canon.nss == 1
-        out = _payload_core(canon, dev, self._rows(ltf_idx[sel]),
-                            self._rows(cfo[sel]), nrx=self.nrx,
-                            n_real=self._rows(n_real), want_sssnr=want_sssnr)
-        psdu = out["psdu"].cpu().numpy()
-        sssnr = out["sssnr0"].cpu().numpy() if "sssnr0" in out else None
-        for j, (i, cfg) in enumerate(items):
-            pb = psdu[j][: cfg.psdu_len].tobytes()
-            ss = float(sssnr[j]) if sssnr is not None else None
-            results[i] = self._mk_data_result(
-                cfg, pb, int(ltf_idx[i]), float(cfo[i]), int(trigs[i]),
-                float(snr_db[i]), float(rssi[i]), ss)
+        trace.count("rx.bucket.calls")
+        trace.count("rx.bucket.rows", nb)
+        with trace.span("rx.bucket"):
+            sel = np.zeros(pad, np.int64)
+            sel[:nb] = [i for i, _ in items]
+            n_real = np.full(pad, canon.n_trellis, np.int32)
+            n_real[:nb] = [c.n_trellis for _, c in items]
+            want_sssnr = canon.fmt == Fmt.VHT and canon.nss == 1
+            out = _payload_core(canon, dev, self._rows(ltf_idx[sel]),
+                                self._rows(cfo[sel]), nrx=self.nrx,
+                                n_real=self._rows(n_real),
+                                want_sssnr=want_sssnr)
+            psdu = _host(out["psdu"], "bucket_readback")
+            sssnr = _host(out.get("sssnr0"), "bucket_readback")
+            for j, (i, cfg) in enumerate(items):
+                pb = psdu[j][: cfg.psdu_len].tobytes()
+                ss = float(sssnr[j]) if sssnr is not None else None
+                results[i] = self._mk_data_result(
+                    cfg, pb, int(ltf_idx[i]), float(cfo[i]), int(trigs[i]),
+                    float(snr_db[i]), float(rssi[i]), ss)
 
     def _process_mu(self, dev: CF, ltf_idx, cfo, trigs, kinds, results,
                     n_stream: int, snr_db, rssi):
@@ -882,47 +951,56 @@ class RxEngine:
             if ki is not None and ki[0] == "mu":
                 groups.setdefault(ki[1].nsts, []).append(i)
         for nsts, idxs in groups.items():
-            n_total = sum(nsts)
-            own = sum(nsts[: self.mu_pos])
-            sel = np.zeros(_pad_batch(len(idxs)), np.int64)
-            sel[: len(idxs)] = idxs
-            sigb_b = _host(_mu_sigb_core(dev[0], self._rows(ltf_idx[sel]),
-                                         self._rows(cfo[sel]), n_total, own))
-            nltf, _, _, data_start = _mu_starts(n_total)
-            buckets: dict[PhyConfig, list[tuple[int, np.ndarray]]] = {}
-            for j, i in enumerate(idxs):
-                sigb = S.parse_vhtsigb(sigb_b[j], mu=True)
-                lsig = kinds[i][2]
-                n_data = lsig.nsym * 80 - (160 + 80 + 80 * nltf + 80)
-                nsym = max(n_data // 80, 0)
-                if (nsym == 0 or not sigb.ok or sigb.mcs > 8
-                        or not (1 <= sigb.length <= 4095)):
+            with trace.span("rx.mu"):
+                self._mu_group(dev, nsts, idxs, ltf_idx, cfo, trigs, kinds,
+                               results, n_stream, snr_db, rssi)
+
+    def _mu_group(self, dev, nsts, idxs, ltf_idx, cfo, trigs, kinds,
+                  results, n_stream, snr_db, rssi):
+        """One nsts tuple's SIG-B pass and payload decodes."""
+        n_total = sum(nsts)
+        own = sum(nsts[: self.mu_pos])
+        sel = np.zeros(_pad_batch(len(idxs)), np.int64)
+        sel[: len(idxs)] = idxs
+        sigb_b = _host(_mu_sigb_core(dev[0], self._rows(ltf_idx[sel]),
+                                     self._rows(cfo[sel]), n_total, own),
+                       "mu_readback")
+        nltf, _, _, data_start = _mu_starts(n_total)
+        buckets: dict[PhyConfig, list[tuple[int, np.ndarray]]] = {}
+        for j, i in enumerate(idxs):
+            sigb = S.parse_vhtsigb(sigb_b[j], mu=True)
+            lsig = kinds[i][2]
+            n_data = lsig.nsym * 80 - (160 + 80 + 80 * nltf + 80)
+            nsym = max(n_data // 80, 0)
+            if (nsym == 0 or not sigb.ok or sigb.mcs > 8
+                    or not (1 <= sigb.length <= 4095)):
+                continue
+            if ltf_idx[i] + data_start + 80 * nsym + 16 > n_stream:
+                continue
+            cfg = PhyConfig(Fmt.VHT, sigb.mcs, nsts[self.mu_pos],
+                            sigb.length, ampdu=True, mu_nsym=nsym)
+            if cfg.nsym != nsym:
+                continue
+            buckets.setdefault(cfg, []).append((i, sigb.crc))
+        for cfg, items in buckets.items():
+            sel = np.zeros(_pad_batch(len(items)), np.int64)
+            sel[: len(items)] = [i for i, _ in items]
+            out = _payload_core_mu(cfg, dev, self._rows(ltf_idx[sel]),
+                                   self._rows(cfo[sel]), n_total, own,
+                                   nrx=self.nrx)
+            psdu = _host(out["psdu"], "mu_readback")
+            service = _host(out["service"], "mu_readback")
+            for j, (i, crc) in enumerate(items):
+                if not np.array_equal(service[j, 8:16], crc):
                     continue
-                if ltf_idx[i] + data_start + 80 * nsym + 16 > n_stream:
-                    continue
-                cfg = PhyConfig(Fmt.VHT, sigb.mcs, nsts[self.mu_pos],
-                                sigb.length, ampdu=True, mu_nsym=nsym)
-                if cfg.nsym != nsym:
-                    continue
-                buckets.setdefault(cfg, []).append((i, sigb.crc))
-            for cfg, items in buckets.items():
-                sel = np.zeros(_pad_batch(len(items)), np.int64)
-                sel[: len(items)] = [i for i, _ in items]
-                out = _payload_core_mu(cfg, dev, self._rows(ltf_idx[sel]),
-                                       self._rows(cfo[sel]), n_total, own,
-                                       nrx=self.nrx)
-                psdu, service = _host(out["psdu"]), _host(out["service"])
-                for j, (i, crc) in enumerate(items):
-                    if not np.array_equal(service[j, 8:16], crc):
-                        continue
-                    r = RxResult(False, Fmt.VHT, cfg.mcs, cfg.nss,
-                                 int(ltf_idx[i]), float(cfo[i]),
-                                 trig=int(trigs[i]), snr_db=float(snr_db[i]),
-                                 rssi=float(rssi[i]))
-                    r.psdu = psdu[j].tobytes()
-                    r.mpdus = MAC.ampdu_deaggregate(r.psdu)
-                    r.ok = len(r.mpdus) > 0
-                    results[i] = r
+                r = RxResult(False, Fmt.VHT, cfg.mcs, cfg.nss,
+                             int(ltf_idx[i]), float(cfo[i]),
+                             trig=int(trigs[i]), snr_db=float(snr_db[i]),
+                             rssi=float(rssi[i]))
+                r.psdu = psdu[j].tobytes()
+                r.mpdus = MAC.ampdu_deaggregate(r.psdu)
+                r.ok = len(r.mpdus) > 0
+                results[i] = r
 
     def _classify(self, lsig, ht_bits, vht_bits):
         """-> (PhyConfig | ("mu", siga, lsig) | None, ndp_nss | None).
@@ -978,7 +1056,8 @@ class RxEngine:
                        ltf_idx: np.ndarray, cfo: np.ndarray,
                        mpdu_len: int = 0) -> dict:
         """Decode a batch of same-config packets at known sync positions."""
-        dev = from_numpy_cf(np.atleast_2d(stream), self.device)
+        with trace.sync("upload", 2):
+            dev = from_numpy_cf(np.atleast_2d(stream), self.device)
         return _payload_core(cfg, dev, self._rows(np.asarray(ltf_idx)),
                              self._rows(np.asarray(cfo, np.float32)),
                              nrx=self.nrx, mpdu_len=mpdu_len)

@@ -14,6 +14,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..utils import trace
+
 
 class CF(NamedTuple):
     """Complex tensor as a (re, im) pair of real tensors."""
@@ -185,8 +187,9 @@ def _idft64_mats():
 def _mats_on(which: str, device: torch.device):
     """The float32 DFT matrices, widened to float64, cached per device."""
     C, S = _dft64_mats() if which == "dft" else _idft64_mats()
-    return (torch.from_numpy(C).to(device, torch.float64),
-            torch.from_numpy(S).to(device, torch.float64))
+    with trace.sync("table_upload", 2):
+        return (torch.from_numpy(C).to(device, torch.float64),
+                torch.from_numpy(S).to(device, torch.float64))
 
 
 def _cmatmul(x: CF, which: str) -> CF:

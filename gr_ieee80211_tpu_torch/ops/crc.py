@@ -14,6 +14,8 @@ import zlib
 import numpy as np
 import torch
 
+from ..utils import trace
+
 
 @functools.lru_cache(maxsize=None)
 def _crc_matrix(nbits: int):
@@ -53,8 +55,10 @@ RESIDUE_BITS = np.array([(558161692 >> i) & 1 for i in range(32)],
 @functools.lru_cache(maxsize=None)
 def _crc_on(nbits: int, device: torch.device):
     M, c = _crc_matrix(nbits)
-    return (torch.from_numpy(M).to(device), torch.from_numpy(c).to(device),
-            torch.from_numpy(RESIDUE_BITS).to(device))
+    with trace.sync("table_upload", 3):
+        return (torch.from_numpy(M).to(device),
+                torch.from_numpy(c).to(device),
+                torch.from_numpy(RESIDUE_BITS).to(device))
 
 
 def crc32_bits(bits: torch.Tensor, nbits: int) -> torch.Tensor:

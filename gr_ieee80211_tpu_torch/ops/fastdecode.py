@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from ..spec import tables as T
+from ..utils import trace
 from . import viterbi as V
 from .frontend import nonzero_padded
 from .viterbi_kernels import decode_window_rows, viterbi_decode
@@ -120,12 +121,15 @@ def _interior_matrix(cr: str) -> np.ndarray:
 
 @functools.lru_cache(maxsize=None)
 def _interior_on(cr: str, device: torch.device) -> torch.Tensor:
-    return torch.from_numpy(_interior_matrix(cr)).to(device)
+    with trace.sync("table_upload"):
+        return torch.from_numpy(_interior_matrix(cr)).to(device)
 
 
 @functools.lru_cache(maxsize=None)
 def _keep_on(cr: str, ncoded: int, device: torch.device) -> torch.Tensor:
-    return torch.from_numpy(_keep_mask(cr, ncoded).astype(np.float32)).to(device)
+    with trace.sync("table_upload"):
+        return torch.from_numpy(_keep_mask(cr, ncoded).astype(np.float32)
+                                ).to(device)
 
 
 # ---------------------------------------------------------------------------
@@ -232,7 +236,8 @@ def _tile(k: int, coded_llr: torch.Tensor, d8: torch.Tensor,
     bits = viterbi_decode(pairs_k)          # segmented rule at width k
     real = idx < B
     out = d8.clone()
-    out[idx[real]] = bits[real]
+    with trace.sync("mask_index", 2):
+        out[idx[real]] = bits[real]
     return out
 
 
@@ -254,7 +259,8 @@ def _win_tile(k: int, coded_llr: torch.Tensor, d8: torch.Tensor,
     kept = decode_window_rows(win, WIN_W, WIN_K)  # (k, WIN_K)
     d8p = F.pad(d8, (0, nwin * WIN_K - n_trellis)).reshape(B * nwin, WIN_K)
     real = flat_idx < B * nwin
-    d8p[flat_idx[real]] = kept[real]
+    with trace.sync("mask_index", 2):
+        d8p[flat_idx[real]] = kept[real]
     return d8p.reshape(B, nwin * WIN_K)[:, :n_trellis]
 
 
@@ -279,9 +285,13 @@ def adaptive_decode(coded_llr: torch.Tensor, cr: str, n_trellis: int,
     B = coded_llr.shape[0]
     d8, syn = inverse_and_syndrome(coded_llr, cr, n_trellis, n_real)
     need = syn > 0
-    n_fail = int(need.sum().item())
+    with trace.sync("decode.n_fail"):
+        n_fail = int(need.sum().item())
+    trace.count("decode.rows", B)
+    trace.count("decode.rows_failed", n_fail)
 
     def done(name, out):
+        trace.count("decode.tier." + name)
         if record is not None:
             record.append(name)
         return out
@@ -298,10 +308,14 @@ def adaptive_decode(coded_llr: torch.Tensor, cr: str, n_trellis: int,
         if n_fail <= k:
             return done(f"tile{k}",
                         _tile(k, coded_llr, d8, need, cr, n_trellis))
-    if use_win and 2 * int(syn.sum().item()) <= 32 * wtiers[0]:
+    if use_win:
+        with trace.sync("decode.syn_sum"):
+            use_win = 2 * int(syn.sum().item()) <= 32 * wtiers[0]
+    if use_win:
         mism = _mism_recompute(coded_llr, d8, cr, n_trellis, n_real)
         dirty = _window_dirty(mism, n_trellis, nwin)
-        n_dirty = int(dirty.sum().item())
+        with trace.sync("decode.n_dirty"):
+            n_dirty = int(dirty.sum().item())
         for k in reversed(wtiers):
             if n_dirty <= k:
                 return done(f"win{k}", _win_tile(k, coded_llr, d8, dirty, cr,

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils import trace
 from .cplx import CF, expj
 from .cuda_lib import counted, launch, on_cuda, require
 
@@ -198,8 +199,10 @@ def stf_metric_strided(x: CF) -> torch.Tensor:
 def nonzero_padded(mask: torch.Tensor, size: int,
                    fill: int = -1) -> torch.Tensor:
     """Ascending indices of the set entries of a 1-D mask, cut or padded
-    to ``size`` with ``fill`` (``jnp.nonzero(size=, fill_value=)``)."""
-    idx = torch.nonzero(mask, as_tuple=True)[0][:size]
+    to ``size`` with ``fill`` (``jnp.nonzero(size=, fill_value=)``).
+    The count of set entries is read back: one synchronization."""
+    with trace.sync("nonzero"):
+        idx = torch.nonzero(mask, as_tuple=True)[0][:size]
     return F.pad(idx, (0, size - idx.shape[0]), value=fill)
 
 

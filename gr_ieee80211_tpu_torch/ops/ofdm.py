@@ -16,11 +16,15 @@ import torch
 from ..gold.tx import data_pilots
 from ..spec import tables as T
 from ..spec.params import Fmt, PhyConfig
+from ..utils import trace
 from .cplx import CF, csum, dft64
 
 
 def _t(a: np.ndarray, device) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    """A host table on ``device``: one upload from pageable memory, which
+    synchronizes."""
+    with trace.sync("table_upload"):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
 
 @functools.lru_cache(maxsize=None)
@@ -468,7 +472,8 @@ def descramble_bits(bits: torch.Tensor) -> torch.Tensor:
     direct row gather of :func:`_descramble_matrix`."""
     B, n = bits.shape
     off_tab, mat = _descramble_on(n, bits.device)
-    pw = torch.tensor([1 << i for i in range(7)], device=bits.device)
+    with trace.sync("const_upload"):
+        pw = torch.tensor([1 << i for i in range(7)], device=bits.device)
     w = (bits[:, :7].to(torch.int64) * pw).sum(dim=1)
     out = bits ^ mat[off_tab[w]].to(bits.dtype)
     out[:, :7] = 0
@@ -478,6 +483,7 @@ def descramble_bits(bits: torch.Tensor) -> torch.Tensor:
 def bits_to_bytes_batch(bits: torch.Tensor) -> torch.Tensor:
     """(B, 8*n) bits -> (B, n) uint8, LSB-first per byte."""
     B, nb = bits.shape
-    pw = torch.tensor([1 << i for i in range(8)], device=bits.device)
+    with trace.sync("const_upload"):
+        pw = torch.tensor([1 << i for i in range(8)], device=bits.device)
     return (bits.reshape(B, nb // 8, 8).to(torch.int64) * pw
             ).sum(dim=-1).to(torch.uint8)

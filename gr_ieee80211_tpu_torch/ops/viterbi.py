@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from ..spec import tables as T
+from ..utils import trace
 
 NEG = -1e9
 #: trellis steps per renormalization (the reference's scan chunk)
@@ -28,8 +29,9 @@ CHUNK = 54
 def _acs_consts(device: torch.device):
     """(c0a, c0b, c1a, c1b) (1, 64) float32: coded bits of the transitions
     from p0 = 2s' mod 64 and p1 = p0 + 1 into s'."""
-    return tuple(torch.from_numpy(c).to(device)[None, :]
-                 for c in T.viterbi_acs_tables())
+    tables = T.viterbi_acs_tables()
+    with trace.sync("table_upload", len(tables)):
+        return tuple(torch.from_numpy(c).to(device)[None, :] for c in tables)
 
 
 def viterbi_decode(llr_pairs: torch.Tensor,
@@ -89,7 +91,8 @@ def depuncture_indices(cr: str, n_steps: int):
 @functools.lru_cache(maxsize=None)
 def depuncture_index_tensor(cr: str, n_steps: int, device: torch.device):
     idx, _ = depuncture_indices(cr, n_steps)
-    return torch.from_numpy(idx.astype(np.int64)).to(device)
+    with trace.sync("table_upload"):
+        return torch.from_numpy(idx.astype(np.int64)).to(device)
 
 
 def depuncture_flat(llr: torch.Tensor, cr: str, n_steps: int) -> torch.Tensor:

@@ -66,6 +66,9 @@ class RxStreamer(threading.Thread):
         self.n_begun = 0
         self.n_packets = 0
         self.n_ok = 0
+        #: the backlog: most samples seen waiting in the fullest ring; a
+        #: reader that wants it per interval sets it back to 0
+        self.fill_max = 0
         #: per-(fmt, mcs) [ok, total, snr_sum, rssi_sum] counters — the
         #: reference decode block's printed per-MCS tallies with CFO/SNR/RSSI
         #: are its measurement API (lib/decode_impl.cc:42-45,393-411); here
@@ -169,8 +172,10 @@ class RxStreamer(threading.Thread):
         pending = None                  # one in-flight block (depth-2 pipe)
         try:
             while not self._stop_evt.is_set():
+                fills = [r.fill for r in self.rings]
+                self.fill_max = max(self.fill_max, *fills)
                 # lockstep: consume only when EVERY antenna ring has a block
-                if any(r.fill < need for r in self.rings):
+                if any(f < need for f in fills):
                     if pending is not None:
                         # idle: drain the in-flight block so results (and
                         # n_blocks, which stop(drain=True) watches) land

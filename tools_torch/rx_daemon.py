@@ -14,6 +14,12 @@ unmodified as the listener.
 
 The port's ``RxEngine`` decodes each block on ``--device`` ("cuda" by
 default, which needs a card; "cpu" runs the kernels' plain twins).
+
+Every ``--stats-every`` seconds (and once at the end of ``--once``) it
+prints the blocks and packets decoded, the per-(format, MCS) tallies,
+the engine's counters since the start (``utils/trace``: host-device
+synchronizations, bucket decodes and their rows, speculation hits and
+misses) and the ring's backlog, its high-water mark since the last line.
 """
 import argparse
 import os
@@ -23,6 +29,16 @@ import time
 import numpy as np
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+
+
+def engine_line(c: dict, backlog: int) -> str:
+    """The stats line's engine part from a ``trace.snapshot()`` and the
+    streamer's backlog."""
+    def g(k):
+        return int(c.get(k, 0))
+    return (f"syncs {g('sync.total')}  buckets {g('rx.bucket.calls')} "
+            f"rows {g('rx.bucket.rows')}  spec hits {g('rx.spec.hits')} "
+            f"misses {g('rx.spec.misses')}  backlog {backlog}")
 
 
 def main():
@@ -54,6 +70,7 @@ def main():
     from gr_ieee80211_tpu_torch.runtime.udp_phy import PhyRxReporter
     from gr_ieee80211_tpu_torch.runtime.streaming import RxStreamer
     from gr_ieee80211_tpu_torch.models.rx import RxEngine
+    from gr_ieee80211_tpu_torch.utils import trace
 
     nrx = len(args.udp_iq or args.file)
     rings = [NAT.IqRing(1 << 23) for _ in range(nrx)]
@@ -91,6 +108,8 @@ def main():
             print(f"done: {streamer.n_blocks} blocks, "
                   f"{streamer.n_ok}/{streamer.n_packets} packets ok",
                   file=sys.stderr)
+            print(engine_line(trace.snapshot(), streamer.fill_max),
+                  file=sys.stderr)
             return 0
         while True:
             time.sleep(args.stats_every)
@@ -106,9 +125,11 @@ def main():
                 f"@{v['snr_db_mean']:.0f}dB"
                 for k, v in sorted(streamer.counter_summary().items(),
                                    key=str))
+            backlog, streamer.fill_max = streamer.fill_max, 0
             print(f"blocks {streamer.n_blocks}  pkts ok "
                   f"{streamer.n_ok}/{streamer.n_packets}  ingest {s}  "
-                  f"[{tallies}]", file=sys.stderr)
+                  f"[{tallies}]  {engine_line(trace.snapshot(), backlog)}",
+                  file=sys.stderr)
     except KeyboardInterrupt:
         return 0
     finally:

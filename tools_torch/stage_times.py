@@ -3,7 +3,6 @@
 
     python3 tools_torch/stage_times.py [txmu] [REPS]
     python3 tools_torch/stage_times.py chain [REPS] [--batch 4096]
-    python3 tools_torch/stage_times.py engine [REPS]
     python3 tools_torch/stage_times.py canon [REPS] [--batch 4096]
     python3 tools_torch/stage_times.py fallback [REPS] [--batch 4096]
         [--device cuda] [--out results_torch/stage_times_<mode>.json]
@@ -23,13 +22,6 @@ Modes:
   equalize and demap, deinterleave), decode (GF(2) inverse + syndrome,
   the tier taken, K1 + K2 inside ``viterbi_decode``), descramble, bytes
   and CRC as stages;
-* ``engine``: engine (b)'s 16 daemon blocks of mixed traffic
-  (``chip_smoke.daemon_stream``) through a speculating ``RxEngine``,
-  begin/finish per block with the streamer's ownership rule
-  (``chip_smoke.run_blocks``): ``_front_core`` (with ``_sig_core``), each
-  ``_decode_bucket`` / ``_payload_core`` (calls per block; in VHT buckets
-  ``_sigb_snr``'s 26-step scan Viterbi), ``_spec_core`` and the host's
-  ``_finish``; times per block;
 * ``canon``: the engine's canonical bucket (VHT MCS5 packets of three
   lengths sharing one rounded-up trellis) through ``_payload_core`` with
   ``n_real`` (the fast path) and without (every row falls back to the
@@ -55,7 +47,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import statistics
 import sys
 import time
 from pathlib import Path
@@ -204,49 +195,6 @@ def mode_chain(dev, reps, a) -> list[dict]:
                      "n_ok_n_det": [int(v) for v in res], "tiers": record,
                      **kern, **measure(dev, call, chain_stages(), reps)})
     return rows
-
-
-def mode_engine(dev, reps, a) -> list[dict]:
-    import chip_smoke as CS
-    from gr_ieee80211_tpu_torch.models import rx as PRX
-    from gr_ieee80211_tpu_torch.ops import viterbi as V
-    stream, sent = CS.daemon_stream(np.random.default_rng(23))
-    eng = PRX.RxEngine(nrx=1, speculate=True, device=dev)
-    got, _, _ = CS.run_blocks(eng, stream)              # warm-up pass
-    n_ok = sum(1 for r in got if r.ok)
-    passes = []
-
-    def one_pass():
-        passes.append(1e3 * sum(CS.run_blocks(eng, stream)[2])
-                      / CS.N_BLOCKS)
-    for _ in range(reps):
-        one_pass()
-    _, kern = timing.counted(one_pass, dev)
-    stages = [(PRX, "_front_core"), (PRX, "_triggers"), (PRX, "_sync_core"),
-              (PRX, "_sig_core"), (V, "viterbi_decode"),
-              (PRX.RxEngine, "_finish"), (PRX.RxEngine, "_classify"),
-              (PRX.RxEngine, "_decode_bucket"), (PRX, "_payload_core"),
-              (PRX, "adaptive_decode"), (PRX, "_sigb_snr"),
-              (PRX, "_spec_core"), (PRX, "_ndp_chan_core")]
-    timer = StageTimer(dev)
-    for owner, name in stages:
-        timer.wrap(owner, name)
-    try:
-        for _ in range(reps):
-            CS.run_blocks(eng, stream)
-    finally:
-        timer.unwrap()
-    busy = device_busy(dev, lambda: CS.run_blocks(eng, stream))
-    for key in ("device_busy_ms", "device_kernels", "profiled_wall_ms"):
-        if busy.get(key) is not None:
-            busy[key] = busy[key] / CS.N_BLOCKS
-    return [{"path": f"engine (b): {CS.N_BLOCKS} daemon blocks of "
-                     f"{CS.BLOCK} + {CS.HALO} samples, speculating",
-             "results": len(got), "ok": n_ok, "sent": len(sent),
-             "ms_per_block": statistics.median(passes),
-             "passes_ms_per_block": passes, **kern,
-             "per_block": {**busy,
-                           "stages": timer.report(reps * CS.N_BLOCKS)}}]
 
 
 def canon_stream(B: int):
@@ -471,8 +419,8 @@ def mode_txmu(dev, reps, a) -> list[dict]:
     return rows
 
 
-MODES = {"txmu": mode_txmu, "chain": mode_chain, "engine": mode_engine,
-         "canon": mode_canon, "fallback": mode_fallback}
+MODES = {"txmu": mode_txmu, "chain": mode_chain, "canon": mode_canon,
+         "fallback": mode_fallback}
 
 
 def main(argv=None) -> int:
