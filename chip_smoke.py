@@ -25,7 +25,11 @@ Phases (any failure exits non-zero before the final line):
    that move byte by byte), timed like K1/K2; and the derotation (K3)
    against its twin at the bench's payload window (4096, 1984) and an
    MCS0 4095 B window (128, 100000), beside the factored-phasor form the
-   chain runs.  Each kernel's bound (the larger of its bytes over
+   chain runs; and the SIG-field scan Viterbi (K6) against its twin at
+   eight SIG-B rows (8, 26), the front end's stacked SIG call at the top
+   of the batch ladder (576, 48) and the data-parallel payload trellis
+   (1024, 4480), both traceback starts, with CUDA-event and host times
+   of both.  Each kernel's bound (the larger of its bytes over
    the card's memory rate and its operations over the float32 lane
    rate) is computed from these inputs;
 4. chain: ``rx_chain_count`` on the 4096-packet VHT MCS7 500 B stream at
@@ -93,9 +97,10 @@ Phases (any failure exits non-zero before the final line):
    trigger per packet after dedup, each within [-64, 8] of its start;
    (i4) ``payload_decode_dp`` on 4096 windows cut from the 32 dB stream at
    the packet starts (>= 99% pass FCS, sampled PSDUs equal the bytes
-   sent; the scan Viterbi, no kernel) and 1024 2x2 VHT 2-SS windows (all
-   pass); (i5) ``mu_chain_dp`` on phase (g)'s 2048 station-0 PPDUs cut
-   into one capture a shard (32 dB: all detected, >= 99% ok; 12 dB:
+   sent; the scan Viterbi, K6 once a shard and no other kernel) and 1024
+   2x2 VHT 2-SS windows (all pass); (i5) ``mu_chain_dp`` on phase (g)'s
+   2048 station-0 PPDUs cut into one capture a shard (32 dB: all
+   detected, >= 99% ok; 12 dB:
    K1/K2 launch); (i6) ``tools_torch/mesh_worker.py`` as 2 processes over
    Gloo on the card, half the shards and half the input each: both print
    (i1)'s 18 dB counts and (i4)'s total; (i7) ``entry.entry`` and
@@ -520,6 +525,63 @@ def phase_kernels_extra(torch, VK, VD, FE, earlier):
          "earlier_ms": both["tb_packed_earlier_ms"],
          f"ms_at_B{B_BUCKET}": small_tb},
     ]
+
+
+#: (B, T) of K6's holds and times: eight SIG-B rows (one VHT bucket of the
+#: engine's batch ladder), the front end's stacked SIG call at the top of
+#: the ladder, and the data-parallel payload windows' trellis
+K6_SHAPES = ((8, 26), (3 * 192, 48), (1024, 4480))
+
+
+def host_ms(torch, fn, reps: int) -> float:
+    """Mean host milliseconds a call of ``fn()`` takes to issue, the card
+    synchronized before and after the ``reps`` calls."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / reps
+
+
+def phase_scan_viterbi(torch, V):
+    """K6 (the SIG decoder in one launch) against its twin at
+    ``K6_SHAPES`` from state 0 and from the argmax, exact equality, with
+    CUDA-event and host times of both; returns its record."""
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(11)
+    times = {}
+    for B_, T_ in K6_SHAPES:
+        x = rng.normal(size=(B_, T_, 2)).astype(np.float32) * 2.0
+        x[:, 1::3, 1] = 0.0                # punctured zeros: metric ties
+        x[: B_ // 4] = np.round(x[: B_ // 4])
+        x = torch.from_numpy(x).to(dev)
+        for from_zero in (True, False):
+            got = V.scan_viterbi(x, from_zero)
+            ref = V.viterbi_decode_ref(x, from_zero)
+            check(torch.equal(got, ref), f"K6 bits differ from the twin at "
+                  f"(B, T) = ({B_}, {T_}), from_zero={from_zero}")
+        reps = KERNEL_REPS if T_ < 1000 else 3
+        times[(B_, T_)] = {
+            "ms": cuda_ms(lambda: V.scan_viterbi(x), KERNEL_REPS),
+            "plain_ms": cuda_ms(lambda: V.viterbi_decode_ref(x), 1),
+            "host_ms": host_ms(torch, lambda: V.scan_viterbi(x), KERNEL_REPS),
+            "plain_host_ms": host_ms(torch, lambda: V.viterbi_decode_ref(x),
+                                     reps)}
+        log(f"kernels: scan_viterbi == twin at (B, T) = ({B_}, {T_}); "
+            + ", ".join(f"{k} {v:.3f}" for k, v in times[(B_, T_)].items()))
+    B_, T_ = K6_SHAPES[-1]
+    n_pad = -(-T_ // V.CHUNK) * V.CHUNK
+    # LLR pairs in, bits out, the scratch decision words written and read;
+    # a step: 64 states x (4 multiplies, 4 adds, a compare, a select)
+    k6_bound = bound(B_ * (8 * T_ + T_ + 2 * 8 * n_pad), 640 * B_ * n_pad)
+    return {"name": "scan_viterbi", "route": "cuda",
+            "source": "gr_ieee80211_tpu_torch/csrc/scan_viterbi.cu",
+            "replaces": None, "max_abs_err": 0.0,
+            **times[(B_, T_)], **k6_bound, "library_ms": None,
+            "earlier_ms": None,
+            **{f"{k}_at_{b}x{t}": v for (b, t), tm in times.items()
+               if (b, t) != (B_, T_) for k, v in tm.items()}}
 
 
 # ---------------------------------------------------------------------------
@@ -1696,7 +1758,7 @@ def phase_mesh(torch, CL, PRX, CF, from_numpy_cf, bench, chain_res,
                  "ms": ms}
     del st
 
-    # (i4) packet-sharded decode of aligned windows (the scan Viterbi)
+    # (i4) packet-sharded decode of aligned windows (the scan Viterbi, K6)
     step, n_samp = M.payload_decode_dp(cfg, mesh_dp, mpdu_len=ml)
     starts = 1024 + spacing * np.arange(B) + 188
     wins = streams[SNR_HI][starts[:, None] + np.arange(n_samp)[None]]
@@ -1709,12 +1771,14 @@ def phase_mesh(torch, CL, PRX, CF, from_numpy_cf, bench, chain_res,
     check(bool((psdu[torch.from_numpy(rows), : len(am)].cpu().numpy()
                 == np.frombuffer(am, np.uint8)[None]).all()),
           "(i4) sampled PSDUs differ from the bytes sent")
-    check(not any(counts.values()), f"(i4) launched a kernel: {counts}")
+    check(counts["scan_viterbi"] == len(mesh_dp.shards)
+          and not any(v for k, v in counts.items() if k != "scan_viterbi"),
+          f"(i4) launched other than K6 once a shard: {counts}")
     ms = median_ms(torch, lambda: step(wd), reps=3, warm=False)
     log(f"mesh (i4) payload_decode_dp: {B} windows of {n_samp} samples on "
         f"{n} shards, {total} pass FCS, {len(rows)} sampled PSDUs equal the "
         f"bytes sent; {ms:.1f} ms/call (CUDA events, median of 3; scan "
-        f"Viterbi, {-(-cfg.n_trellis // 54) * 54} steps; {smi})")
+        f"Viterbi K6, {-(-cfg.n_trellis // 54) * 54} steps; {smi})")
     out["i4"] = {"windows": B, "ok": total, "ms": ms}
     from gr_ieee80211_tpu_torch.gold import mac, tx
     from gr_ieee80211_tpu_torch.spec.params import Fmt, PhyConfig
@@ -2156,6 +2220,7 @@ def main() -> int:
     from gr_ieee80211_tpu_torch.models import tx as PTX
     from gr_ieee80211_tpu_torch.ops import cuda_lib as CL
     from gr_ieee80211_tpu_torch.ops import frontend as FE
+    from gr_ieee80211_tpu_torch.ops import viterbi as V
     from gr_ieee80211_tpu_torch.ops import viterbi_kernels as VK
     from gr_ieee80211_tpu_torch.ops.cplx import CF, from_numpy_cf
     from tools_torch import bench as TB
@@ -2183,13 +2248,15 @@ def main() -> int:
                     "ptxas_earlier": ptxas_summary(earlier_log)}))
     check({k.split("<")[0] for k in ptxas} == {
         "acs_kernel", "traceback_kernel", "derotate_kernel",
-        "acs_packed_kernel", "traceback_packed_kernel"},
-        f"ptxas did not name the five package kernels: {sorted(ptxas)}")
+        "acs_packed_kernel", "traceback_packed_kernel",
+        "scan_viterbi_kernel"},
+        f"ptxas did not name the six package kernels: {sorted(ptxas)}")
     spilled = {k: v for k, v in ptxas.items() if v["spill_bytes"]}
     check(not spilled, f"package kernels spill registers: {spilled}")
 
     kernels = (phase_kernels(torch, VK, VD, earlier)
-               + phase_kernels_extra(torch, VK, VD, FE, earlier))
+               + phase_kernels_extra(torch, VK, VD, FE, earlier)
+               + [phase_scan_viterbi(torch, V)])
     bench = TB.bench_streams(B)         # bench.py's streams
     launches, chain_ok, chain_res = phase_chain(torch, VK, CL, PRX,
                                                 from_numpy_cf, bench)
@@ -2231,8 +2298,10 @@ def main() -> int:
 
     for k in kernels:
         name = k["name"]
-        k["on_path"] = name in ("acs_sweep", "traceback_sweep")
-        if k["on_path"]:                # also held at the MU path's shapes
+        k["on_path"] = name in ("acs_sweep", "traceback_sweep",
+                                "scan_viterbi")
+        if name in ("acs_sweep", "traceback_sweep"):
+            # also held at the MU path's shapes and at every path's
             k["max_abs_err"] = max(k["max_abs_err"],
                                    mu_errs[name == "traceback_sweep"],
                                    path_errs[name == "traceback_sweep"])

@@ -9,9 +9,10 @@ Nothing is built or loaded when a module is imported: the first kernel
 launch builds.
 
 The wrappers that launch the kernels (``ops/viterbi_kernels.py``,
-``ops/frontend.derotate``) share the helpers here: the CPU-tensor /
-CUDA-tensor split (:func:`on_cuda`) and the launch counters
-(:func:`counted`, :func:`reset_launch_counts`).
+``ops/viterbi.scan_viterbi``, ``ops/frontend.derotate``) share the
+helpers here: the CPU-tensor / CUDA-tensor split (:func:`on_cuda`), the
+alignment of vector-loaded operands (:func:`aligned`) and the launch
+counters (:func:`counted`, :func:`reset_launch_counts`).
 """
 from __future__ import annotations
 
@@ -39,6 +40,7 @@ _ENTRY_POINTS = {
     "gr80211_acs_sweep_packed": [_VP] * 6 + [_CI, _CI, _VP],
     "gr80211_traceback_sweep_packed": [_VP] * 4 + [_CI, _CI, _VP],
     "gr80211_derotate": [_VP] * 5 + [_CI, _CI, _CF, _VP],
+    "gr80211_scan_viterbi": [_VP] * 3 + [_CI, _CI, _CI, _VP],
 }
 
 
@@ -120,6 +122,12 @@ def on_cuda(*ts) -> bool:
         require(len({t.device for t in ts}) == 1,
                 "tensors on different CUDA devices")
     return "cuda" in kinds
+
+
+def aligned(t, nbytes: int):
+    """Contiguous and aligned for the kernels' vector loads."""
+    t = t.contiguous()
+    return t if t.data_ptr() % nbytes == 0 else t.clone()
 
 
 def launch(name: str, device, *args):

@@ -2,13 +2,17 @@
 (port of ``gr_ieee80211_tpu.ops.viterbi``).
 
 :func:`viterbi_decode` is the reference's plain-array decoder, which the
-SIG fields use (T = 24, 26, 48).  Its semantics differ from the payload
-kernels' (:mod:`.viterbi_kernels`) and are kept exactly: (B, 64) metrics
-with predecessors ``2s mod 64`` and ``2s+1 mod 64``, a strict
+SIG fields use (T = 24, 26, 48) and the data-parallel payload windows
+(``parallel/mesh.payload_decode_dp``).  Its semantics differ from the
+payload kernels' (:mod:`.viterbi_kernels`) and are kept exactly: (B, 64)
+metrics with predecessors ``2s mod 64`` and ``2s+1 mod 64``, a strict
 ``cand1 > cand0`` choice, zero-LLR padding to a ``CHUNK`` = 54 multiple
 with renormalization once per chunk, and traceback from state 0 or from
-the argmax of the final metrics.  It is plain torch ops (a loop over the
-trellis), as the reference computes it outside any Pallas kernel.
+the argmax of the final metrics.  The reference computes it as a
+``lax.scan`` outside any Pallas kernel.  On the card it is one launch of
+the hand-written kernel K6 (``csrc/scan_viterbi.cu``, wrapper
+:func:`scan_viterbi`); its plain twin :func:`viterbi_decode_ref` (a loop
+over the trellis) runs for CPU tensors.
 """
 from __future__ import annotations
 
@@ -19,10 +23,15 @@ import torch
 
 from ..spec import tables as T
 from ..utils import trace
+from .cuda_lib import aligned, counted, launch, on_cuda, require
 
 NEG = -1e9
 #: trellis steps per renormalization (the reference's scan chunk)
 CHUNK = 54
+#: padded trellises up to this many steps keep K6's decision words in
+#: shared memory; longer ones take a global scratch buffer
+#: (``kSmemSteps`` of ``csrc/scan_viterbi.cu``)
+SMEM_STEPS = 1512
 
 
 @functools.lru_cache(maxsize=None)
@@ -36,12 +45,50 @@ def _acs_consts(device: torch.device):
 
 def viterbi_decode(llr_pairs: torch.Tensor,
                    traceback_from_zero: bool = True) -> torch.Tensor:
-    """(B, T, 2) float32 depunctured LLRs (positive = coded bit 1) ->
-    (B, T) uint8 bits, bit-equal to the reference's ``viterbi_decode``.
+    """(B, T, 2) depunctured LLRs (positive = coded bit 1) -> (B, T)
+    uint8 bits, bit-equal to the reference's ``viterbi_decode``: K6 for
+    CUDA tensors, the twin for CPU tensors.
 
     Rows are independent, so callers may stack trellises of different
     lengths that pad to the same CHUNK multiple (zero LLRs past each
     row's end) into one call."""
+    return scan_viterbi(llr_pairs.to(torch.float32), traceback_from_zero)
+
+
+@counted
+def scan_viterbi(llr: torch.Tensor,
+                 traceback_from_zero: bool = True) -> torch.Tensor:
+    """The decode of :func:`viterbi_decode` in one launch of K6.
+
+    llr: (B, T, 2) float32 LLR pairs, any T.  Returns (B, T) uint8 bits.
+    CPU tensors take the twin :func:`viterbi_decode_ref`; CUDA tensors
+    launch the kernel or raise."""
+    require(llr.ndim == 3 and llr.shape[2] == 2,
+            f"scan_viterbi takes (B, T, 2) LLR pairs, got {tuple(llr.shape)}")
+    require(llr.dtype == torch.float32, "scan_viterbi takes float32")
+    if not on_cuda(llr):
+        return viterbi_decode_ref(llr, traceback_from_zero)
+    B, n_steps, _ = llr.shape
+    dev = llr.device
+    bits = torch.empty((B, n_steps), dtype=torch.uint8, device=dev)
+    if B == 0 or n_steps == 0:
+        return bits
+    n_pad = -(-n_steps // CHUNK) * CHUNK
+    scratch = (torch.empty((B, n_pad, 2), dtype=torch.int32, device=dev)
+               if n_pad > SMEM_STEPS else None)
+    llr = aligned(llr, 8)
+    launch("gr80211_scan_viterbi", dev, llr.data_ptr(), bits.data_ptr(),
+           None if scratch is None else scratch.data_ptr(), n_steps, B,
+           int(traceback_from_zero))
+    scan_viterbi.launches += 1
+    scan_viterbi.shapes.add((B, n_steps))
+    return bits
+
+
+def viterbi_decode_ref(llr_pairs: torch.Tensor,
+                       traceback_from_zero: bool = True) -> torch.Tensor:
+    """Plain PyTorch twin of K6: the reference's scan as a loop over the
+    trellis, (B, T, 2) LLR pairs -> (B, T) uint8 bits."""
     B, n_steps, _ = llr_pairs.shape
     dev = llr_pairs.device
     n_pad = -(-n_steps // CHUNK) * CHUNK

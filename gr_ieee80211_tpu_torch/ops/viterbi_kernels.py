@@ -51,7 +51,8 @@ import functools
 import numpy as np
 import torch
 
-from .cuda_lib import counted, launch, on_cuda as _on_cuda, require as _require
+from .cuda_lib import aligned as _aligned, counted, launch
+from .cuda_lib import on_cuda as _on_cuda, require as _require
 from .cuda_lib import reset_launch_counts  # noqa: F401  (re-exported)
 
 NEG = -1e9
@@ -160,12 +161,6 @@ def acs_sweep_ref(llr: torch.Tensor, pm0: torch.Tensor):
     -> (B, T, 2) int32 decision words and the final (B, 64) metrics."""
     dec_lo, dec_hi, p = _acs_steps(llr[:, :, 0].T, llr[:, :, 1].T, pm0.T)
     return words_from_planes(dec_lo, dec_hi), p.T.contiguous()
-
-
-def _aligned(t: torch.Tensor, nbytes: int) -> torch.Tensor:
-    """Contiguous and aligned for the kernels' vector loads."""
-    t = t.contiguous()
-    return t if t.data_ptr() % nbytes == 0 else t.clone()
 
 
 @counted

@@ -199,8 +199,8 @@ def payload_decode_dp(cfg: PhyConfig, mesh: Mesh, mpdu_len: int = 0,
     divisible by the shard count and t = 0 at the L-LTF window, and
     returns (psdu (B, psdu_len) uint8, fcs_ok (B,), the global ok count),
     all on the first shard's device.  Like the reference it decodes with
-    the scan Viterbi (``ops.viterbi.viterbi_decode``), so it launches no
-    kernel."""
+    the scan Viterbi (``ops.viterbi.viterbi_decode``): on the card one
+    launch of K6 a shard and no other kernel."""
     n_samp = RX._data_start(cfg) + 80 * cfg.nsym
     devs = mesh.shards
 

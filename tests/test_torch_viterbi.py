@@ -1,13 +1,14 @@
 """Viterbi ACS (K1) / traceback (K2) twins, their packed variants (K4 /
 K5) and decode host side vs the Pallas reference (interpret mode on the
-CPU), and the plain SIG-field decoder vs the reference's XLA one:
-bit-exact.
+CPU), and the plain SIG-field decoder (K6's twin) vs the reference's XLA
+one: bit-exact.
 
 The port's plain PyTorch twins stand in for the CUDA kernels on the CPU;
 the kernels themselves are held to the twins on the card (the ``gpu``
 test here and ``chip_smoke.py``).
 """
 import importlib.util
+import re
 from pathlib import Path
 
 import numpy as np
@@ -18,6 +19,7 @@ import torch
 from gr_ieee80211_tpu.gold import bits as GB
 from gr_ieee80211_tpu.ops import viterbi as JV
 from gr_ieee80211_tpu.ops import viterbi_pallas as JVP
+from gr_ieee80211_tpu_torch.ops import cuda_lib as PCL
 from gr_ieee80211_tpu_torch.ops import viterbi as PV
 from gr_ieee80211_tpu_torch.ops import viterbi_kernels as PVK
 
@@ -266,6 +268,54 @@ def test_plain_viterbi_stacked_rows_equal_separate():
     assert np.array_equal(both[8:].numpy(), sep[1])
     assert np.array_equal(PV.decode_coded_llrs(
         torch.from_numpy(b.reshape(8, -1)), "1/2", 48).numpy(), sep[1])
+
+
+@pytest.mark.parametrize("bad", [
+    torch.zeros((4, 26)), torch.zeros((4, 26, 3)), torch.zeros((26, 2)),
+    torch.zeros((4, 26, 2), dtype=torch.float64),
+    torch.zeros((4, 26, 2), dtype=torch.bfloat16),
+    torch.zeros((4, 26, 2), device="meta")])
+def test_scan_viterbi_wrapper_checks_inputs(bad):
+    """K6's wrapper refuses what the kernel cannot take: shapes other than
+    (B, T, 2), dtypes other than float32, devices other than one CPU or
+    CUDA device; no launch is counted."""
+    PCL.reset_launch_counts()
+    with pytest.raises(ValueError):
+        PV.scan_viterbi(bad)
+    assert PV.scan_viterbi.launches == 0
+
+
+@pytest.mark.parametrize("T_,B_", [(24, 3), (26, 8), (48, 1), (55, 5),
+                                   (0, 2), (26, 0)])
+@pytest.mark.parametrize("from_zero", [True, False])
+def test_scan_viterbi_runs_the_twin_on_cpu(T_, B_, from_zero):
+    """CPU tensors take the twin, through ``scan_viterbi`` and through
+    ``viterbi_decode`` (which hands it float32), and count no launch."""
+    PCL.reset_launch_counts()
+    x = torch.from_numpy(_sig_llrs(np.random.default_rng(T_), B_, T_))
+    ref = PV.viterbi_decode_ref(x, from_zero)
+    assert ref.dtype == torch.uint8 and ref.shape == (B_, T_)
+    assert torch.equal(PV.scan_viterbi(x, from_zero), ref)
+    assert torch.equal(PV.viterbi_decode(x.double(), from_zero), ref)
+    assert PV.scan_viterbi.launches == 0
+    assert PCL.launch_counts()["scan_viterbi"] == 0
+
+
+def test_scan_viterbi_source_matches_wrapper():
+    """The C entry point, its argument list and the constants K6 shares
+    with its wrapper agree: CHUNK, the shared-memory step limit, and
+    (llr, bits, decisions, n_steps, batch, from_zero, stream)."""
+    src = (PCL.CSRC / "scan_viterbi.cu").read_text()
+    assert int(re.search(r"kChunk = (\d+);", src).group(1)) == PV.CHUNK
+    assert (int(re.search(r"kSmemSteps = (\d+);", src).group(1))
+            == PV.SMEM_STEPS)
+    sig = re.search(r"int gr80211_scan_viterbi\(([^)]*)\)", src).group(1)
+    args = [a.split()[-1].lstrip("*") for a in sig.split(",")]
+    assert args == ["llr", "bits", "decisions", "n_steps", "batch",
+                    "from_zero", "stream"]
+    types = PCL._ENTRY_POINTS["gr80211_scan_viterbi"]
+    assert types == [PCL._VP] * 3 + [PCL._CI] * 3 + [PCL._VP]
+    assert PCL.CSRC / "scan_viterbi.cu" in PCL.sources()
 
 
 @pytest.mark.parametrize("kind", ["pinned", "uniform"])
