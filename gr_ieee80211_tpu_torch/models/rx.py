@@ -404,9 +404,11 @@ def _payload_core(cfg: PhyConfig, stream: CF, ltf_idx: torch.Tensor,
     pidx = OF._idx("PILOT_IDX", xs.device)
     with trace.span("rx.payload.chanest"):
         if cfg.fmt == Fmt.L:
-            h0 = OF.legacy_chanest(xs[:, 0], 0)
-            h = h0[:, None, None, :]
-            pilot_h = h0[:, pidx][:, None, :]
+            # one L-LTF estimate an antenna: (B, nrx, 64)
+            h0 = cstack([OF.legacy_chanest(xs[:, r], 0) for r in range(nrx)],
+                        dim=1)
+            h = h0[:, :, None, :]
+            pilot_h = h0[:, :, pidx]
         else:
             h, pilot_h = OF.nl_chanest(xs, 208 + 160 + 80, cfg.nltf, cfg.nss)
             if cfg.nss == 1:
@@ -921,6 +923,9 @@ class RxEngine:
         pad = _pad_batch(nb)
         trace.count("rx.bucket.calls")
         trace.count("rx.bucket.rows", nb)
+        # counted at every call, 0 for one stream, so that the counter is
+        # there wherever a bucket decodes
+        trace.count("rx.bucket.rows_2ss", nb if canon.nss == 2 else 0)
         with trace.span("rx.bucket"):
             sel = np.zeros(pad, np.int64)
             sel[:nb] = [i for i, _ in items]

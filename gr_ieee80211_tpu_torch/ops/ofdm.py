@@ -356,30 +356,45 @@ def equalize_and_demap(grids: CF, h: CF, pilot_h: CF,
     hd = h[:, :, :, didx]                                    # (B,nrx,nss,nsd)
     if cfg.nss == 1 and nrx == 1:
         eq = (y[:, 0] / hd[:, 0, 0][:, None, :])[:, None]    # (B,1,nsym,nsd)
-    else:
-        # ZF through the normal equations; for nss <= 2 the Gram diagonal
-        # is real
+    elif cfg.nss == 1:
+        # MRC through the normal equations; the Gram matrix is real
         h0 = hd[:, :, 0]
         g00 = h0.abs2().sum(dim=1)                           # (B, nsd)
         r0 = csum(h0.conj().reshape(B, nrx, 1, -1) * y, dim=1)
-        if cfg.nss == 1:
-            eq = (r0 * (1.0 / torch.clamp(g00, min=1e-20))[:, None, :])[:, None]
-        else:
-            h1 = hd[:, :, 1]
-            g11 = h1.abs2().sum(dim=1)
-            g01 = csum(h0.conj().reshape(B, nrx, -1) * h1, dim=1)  # (B, nsd)
-            r1 = csum(h1.conj().reshape(B, nrx, 1, -1) * y, dim=1)
-            det = g00 * g11 - g01.abs2()                     # real (B, nsd)
-            inv = 1.0 / torch.where(det.abs() > 1e-20, det,
-                                    torch.full_like(det, 1e-20))
-            e0 = r0 * g11[:, None, :] - r1 * CF(g01.re[:, None, :],
-                                                g01.im[:, None, :])
-            e1 = r1 * g00[:, None, :] - r0 * CF(g01.re[:, None, :],
-                                                -g01.im[:, None, :])
-            eq = CF(torch.stack([e0.re, e1.re], dim=1) * inv[:, None, None, :],
-                    torch.stack([e0.im, e1.im], dim=1) * inv[:, None, None, :])
+        eq = (r0 * (1.0 / torch.clamp(g00, min=1e-20))[:, None, :])[:, None]
+    else:
+        eq = zf_equalize(y, hd)
     llr = llr_demap(eq, cfg.nbpscs)                          # (B,nss,nsym,ncbpss)
     return llr.reshape(B, cfg.nss, -1)
+
+
+def zf_equalize(y: CF, hd: CF) -> CF:
+    """Two-stream ZF through the normal equations: the Gram matrix G =
+    H^H H, its determinant and the explicit 2 x 2 inverse at each data
+    subcarrier, applied to the matched-filter outputs H^H y.
+
+    y: (B, nrx, nsym, nsd) pilot-phase-corrected data tones; hd: (B, nrx,
+    2, nsd) the channel there.  Returns the equalized streams (B, 2, nsym,
+    nsd).  Span ``rx.payload.zf``."""
+    with trace.span("rx.payload.zf"):
+        B, nrx = hd.shape[:2]
+        h0 = hd[:, :, 0]
+        g00 = h0.abs2().sum(dim=1)                           # (B, nsd)
+        r0 = csum(h0.conj().reshape(B, nrx, 1, -1) * y, dim=1)
+        # for two streams the Gram diagonal is real
+        h1 = hd[:, :, 1]
+        g11 = h1.abs2().sum(dim=1)
+        g01 = csum(h0.conj().reshape(B, nrx, -1) * h1, dim=1)  # (B, nsd)
+        r1 = csum(h1.conj().reshape(B, nrx, 1, -1) * y, dim=1)
+        det = g00 * g11 - g01.abs2()                         # real (B, nsd)
+        inv = 1.0 / torch.where(det.abs() > 1e-20, det,
+                                torch.full_like(det, 1e-20))
+        e0 = r0 * g11[:, None, :] - r1 * CF(g01.re[:, None, :],
+                                            g01.im[:, None, :])
+        e1 = r1 * g00[:, None, :] - r0 * CF(g01.re[:, None, :],
+                                            -g01.im[:, None, :])
+        return CF(torch.stack([e0.re, e1.re], dim=1) * inv[:, None, None, :],
+                  torch.stack([e0.im, e1.im], dim=1) * inv[:, None, None, :])
 
 
 def llr_demap(eq: CF, nbpscs: int) -> torch.Tensor:

@@ -8,7 +8,8 @@
     python3 tools_torch/trace_check.py wait [--workload ...] [--seed N]
         [--runs 5] [--out results_torch/trace_wait.json]
 
-* ``sync``: the cell's inputs from the seed (``benchmark/generate.py``),
+* ``sync``: the cell's inputs from the seed (``benchmark/generate.py``;
+  ``generate_2x2.py`` for a two-antenna cell),
   one warm pass of ``RxEngine`` over its blocks (``begin_process`` then
   ``finish_process``, block by block, as the benchmark's entry), then one pass under
   ``torch.cuda.set_sync_debug_mode("warn")``: every synchronizing call
@@ -76,13 +77,14 @@ def _site(stack) -> str:
 
 def mode_sync(a) -> dict:
     import torch
-    from benchmark import core, generate
+    from benchmark import core, generate, generate_2x2
     from benchmark.run import load_cell
     from gr_ieee80211_tpu_torch.models.rx import RxEngine
     from gr_ieee80211_tpu_torch.utils import trace
     _, _, cfg, tr = load_cell(a.workload)
     with core.workers() as pool:
-        views = generate.make(tr, cfg, a.seed, pool)["views"]
+        gen = generate_2x2 if cfg["nrx"] == 2 else generate
+        views = gen.make(tr, cfg, a.seed, pool)["views"]
     dev = timing.require_device(a.device)
     eng = RxEngine(nrx=cfg["nrx"], device=dev, **cfg["engine"])
 
