@@ -29,7 +29,12 @@ Phases (any failure exits non-zero before the final line):
    eight SIG-B rows (8, 26), the front end's stacked SIG call at the top
    of the batch ladder (576, 48) and the data-parallel payload trellis
    (1024, 4480), both traceback starts, with CUDA-event and host times
-   of both.  Each kernel's bound (the larger of its bytes over
+   of both; and the payload channel estimate (K7) against its twin at
+   the daemon cells' bucket shapes (every branch at one or two rows, one
+   and two antennas) and at the chain's 4096 rows (the L and P-matrix
+   estimates bit-equal, the refined ones within 1e-5 of the row's
+   largest |h|), with CUDA-event and host times of both.  Each kernel's
+   bound (the larger of its bytes over
    the card's memory rate and its operations over the float32 lane
    rate) is computed from these inputs;
 4. chain: ``rx_chain_count`` on the 4096-packet VHT MCS7 500 B stream at
@@ -582,6 +587,78 @@ def phase_scan_viterbi(torch, V):
             "earlier_ms": None,
             **{f"{k}_at_{b}x{t}": v for (b, t), tm in times.items()
                if (b, t) != (B_, T_) for k, v in tm.items()}}
+
+
+#: K7's shapes (format, MCS, streams, antennas, rows): the daemon cells'
+#: buckets (one or two rows of every branch; VHT one-stream with SIG-B),
+#: then the chain's 4096 rows of the three heaviest branches
+K7_SHAPES = (("L", 5, 1, 1, 1), ("HT", 3, 1, 1, 1), ("VHT", 4, 1, 1, 1),
+             ("VHT", 4, 1, 1, 2), ("HT", 3, 1, 2, 1), ("HT", 11, 2, 2, 1),
+             ("VHT", 5, 2, 2, 2), ("VHT", 4, 1, 1, 4096),
+             ("VHT", 4, 1, 2, 4096), ("VHT", 5, 2, 2, 4096))
+
+
+def phase_payload_chanest(torch, OF):
+    """K7 (the payload channel estimate in one launch) against its twin at
+    ``K7_SHAPES`` from windows of the tests' builder at 30 dB: the L and
+    P-matrix estimates bit-equal, the refined one-stream ones within 1e-5
+    of each row's largest |h|; CUDA-event and host times of both; returns
+    its record (the largest refined gap among them)."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    import _chanest_windows as W
+    from gr_ieee80211_tpu_torch.ops.cplx import from_numpy_cf
+    from gr_ieee80211_tpu_torch.spec.params import Fmt
+    dev = torch.device("cuda", 0)
+    times, worst = {}, 0.0
+    for k, (fname, mcs, nss, nrx, B_) in enumerate(K7_SHAPES):
+        fmt = Fmt[fname]
+        cfg, x, sigb_gi = W.windows(fmt, mcs, nss, nrx, B_, 30.0, 700 + k)
+        xs = from_numpy_cf(x, dev)
+        args = (xs, fmt, cfg.nltf, nss, sigb_gi)
+        got = OF.payload_chanest(*args)
+        ref = OF.payload_chanest_ref(*args)
+        torch.cuda.synchronize()
+        if fmt == Fmt.L or nss == 2:
+            check(all(torch.equal(a, b) for a, b in zip(
+                (*got[0], *got[1]), (*ref[0], *ref[1]))),
+                f"K7 differs from the twin at {K7_SHAPES[k]}")
+            gap = 0.0
+        else:
+            hmax = torch.sqrt(ref[0].re ** 2 + ref[0].im ** 2).reshape(
+                B_, -1).amax(dim=1)
+            gap = max(float((torch.maximum((a.re - b.re).abs(), (
+                a.im - b.im).abs()).reshape(B_, -1).amax(dim=1) / hmax).max())
+                for a, b in zip(got, ref))
+            check(gap <= 1e-5, f"K7's refined estimate is {gap:.3g} of max "
+                  f"|h| from the twin's at {K7_SHAPES[k]}")
+        worst = max(worst, gap)
+        tag = f"{fname}{nss}x{nrx}_b{B_}"
+        times[tag] = {
+            "ms": cuda_ms(lambda: OF.payload_chanest(*args), KERNEL_REPS),
+            "plain_ms": cuda_ms(lambda: OF.payload_chanest_ref(*args), 3),
+            "host_ms": host_ms(torch, lambda: OF.payload_chanest(*args),
+                               KERNEL_REPS),
+            "plain_host_ms": host_ms(
+                torch, lambda: OF.payload_chanest_ref(*args), 3),
+            "gap": gap}
+        log(f"kernels: payload_chanest == twin at {tag}; "
+            + ", ".join(f"{k2} {v:.4g}" for k2, v in times[tag].items()))
+    # the chain's one-stream VHT shape with SIG-B on one antenna: 7 windows
+    # of 64 samples read, 64 + 4 estimates written (complex float32); 7
+    # DFTs of 64 x 64 products in float64 multiply-adds (two lane-
+    # operations each: the float64 rate is half the float32 one), the
+    # 56 x 56 complex projection and ~200 other float operations a tone
+    tag = "VHT1x1_b4096"
+    B_ = 4096
+    k7_bound = bound(B_ * (7 * 64 * 8 + 68 * 8),
+                     B_ * 64 * (2 * 7 * 64 * 4 + 2 * 56 * 4 + 200))
+    return {"name": "payload_chanest", "route": "cuda",
+            "source": "gr_ieee80211_tpu_torch/csrc/payload_chanest.cu",
+            "replaces": None, "max_abs_err": worst,
+            **{k2: v for k2, v in times[tag].items() if k2 != "gap"},
+            **k7_bound, "library_ms": None, "earlier_ms": None,
+            **{f"{k2}_at_{t}": v for t, tm in times.items() if t != tag
+               for k2, v in tm.items()}}
 
 
 # ---------------------------------------------------------------------------
@@ -2220,6 +2297,7 @@ def main() -> int:
     from gr_ieee80211_tpu_torch.models import tx as PTX
     from gr_ieee80211_tpu_torch.ops import cuda_lib as CL
     from gr_ieee80211_tpu_torch.ops import frontend as FE
+    from gr_ieee80211_tpu_torch.ops import ofdm as OF
     from gr_ieee80211_tpu_torch.ops import viterbi as V
     from gr_ieee80211_tpu_torch.ops import viterbi_kernels as VK
     from gr_ieee80211_tpu_torch.ops.cplx import CF, from_numpy_cf
@@ -2249,14 +2327,15 @@ def main() -> int:
     check({k.split("<")[0] for k in ptxas} == {
         "acs_kernel", "traceback_kernel", "derotate_kernel",
         "acs_packed_kernel", "traceback_packed_kernel",
-        "scan_viterbi_kernel"},
-        f"ptxas did not name the six package kernels: {sorted(ptxas)}")
+        "scan_viterbi_kernel", "payload_chanest_kernel"},
+        f"ptxas did not name the seven package kernels: {sorted(ptxas)}")
     spilled = {k: v for k, v in ptxas.items() if v["spill_bytes"]}
     check(not spilled, f"package kernels spill registers: {spilled}")
 
     kernels = (phase_kernels(torch, VK, VD, earlier)
                + phase_kernels_extra(torch, VK, VD, FE, earlier)
-               + [phase_scan_viterbi(torch, V)])
+               + [phase_scan_viterbi(torch, V),
+                  phase_payload_chanest(torch, OF)])
     bench = TB.bench_streams(B)         # bench.py's streams
     launches, chain_ok, chain_res = phase_chain(torch, VK, CL, PRX,
                                                 from_numpy_cf, bench)
@@ -2299,7 +2378,7 @@ def main() -> int:
     for k in kernels:
         name = k["name"]
         k["on_path"] = name in ("acs_sweep", "traceback_sweep",
-                                "scan_viterbi")
+                                "scan_viterbi", "payload_chanest")
         if name in ("acs_sweep", "traceback_sweep"):
             # also held at the MU path's shapes and at every path's
             k["max_abs_err"] = max(k["max_abs_err"],

@@ -401,23 +401,10 @@ def _payload_core(cfg: PhyConfig, stream: CF, ltf_idx: torch.Tensor,
         xs = cstack([FE.derotate_batch(stream[r], ltf_idx, cfo, n_need,
                                        low_prec=True)
                      for r in range(nrx)], dim=1)        # (B, nrx, n)
-    pidx = OF._idx("PILOT_IDX", xs.device)
     with trace.span("rx.payload.chanest"):
-        if cfg.fmt == Fmt.L:
-            # one L-LTF estimate an antenna: (B, nrx, 64)
-            h0 = cstack([OF.legacy_chanest(xs[:, r], 0) for r in range(nrx)],
-                        dim=1)
-            h = h0[:, :, None, :]
-            pilot_h = h0[:, :, pidx]
-        else:
-            h, pilot_h = OF.nl_chanest(xs, 208 + 160 + 80, cfg.nltf, cfg.nss)
-            if cfg.nss == 1:
-                sigb_gi = data_start - 80 if cfg.fmt == Fmt.VHT else None
-                h, pilot_h = OF.refine_chanest_siso(xs, h, pilot_h,
-                                                    fmt=cfg.fmt,
-                                                    sigb_gi=sigb_gi)
-            if cfg.fmt == Fmt.HT:
-                pilot_h = csum(h[:, :, :, pidx], dim=2)
+        h, pilot_h = OF.payload_chanest(
+            xs, cfg.fmt, cfg.nltf, cfg.nss,
+            data_start - 80 if cfg.fmt == Fmt.VHT else None)
     with trace.span("rx.payload.fft"):
         grids = OF.fft_syms(cstack([
             OF.extract_sym_windows(xs[:, r], data_start, cfg.nsym)

@@ -9,10 +9,11 @@ Nothing is built or loaded when a module is imported: the first kernel
 launch builds.
 
 The wrappers that launch the kernels (``ops/viterbi_kernels.py``,
-``ops/viterbi.scan_viterbi``, ``ops/frontend.derotate``) share the
-helpers here: the CPU-tensor / CUDA-tensor split (:func:`on_cuda`), the
-alignment of vector-loaded operands (:func:`aligned`) and the launch
-counters (:func:`counted`, :func:`reset_launch_counts`).
+``ops/viterbi.scan_viterbi``, ``ops/frontend.derotate``,
+``ops/ofdm.payload_chanest``) share the helpers here: the CPU-tensor /
+CUDA-tensor split (:func:`on_cuda`), the alignment of vector-loaded
+operands (:func:`aligned`) and the launch counters (:func:`counted`,
+:func:`reset_launch_counts`).
 """
 from __future__ import annotations
 
@@ -41,6 +42,7 @@ _ENTRY_POINTS = {
     "gr80211_traceback_sweep_packed": [_VP] * 4 + [_CI, _CI, _VP],
     "gr80211_derotate": [_VP] * 5 + [_CI, _CI, _CF, _VP],
     "gr80211_scan_viterbi": [_VP] * 3 + [_CI, _CI, _CI, _VP],
+    "gr80211_payload_chanest": [_VP] * 7 + [_CI] * 8 + [_CF, _CF, _VP],
 }
 
 

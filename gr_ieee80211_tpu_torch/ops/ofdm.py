@@ -17,7 +17,8 @@ from ..gold.tx import data_pilots
 from ..spec import tables as T
 from ..spec.params import Fmt, PhyConfig
 from ..utils import trace
-from .cplx import CF, csum, dft64
+from .cplx import CF, _dft64_mats, cstack, csum, dft64
+from .cuda_lib import counted, launch, on_cuda, require
 
 
 def _t(a: np.ndarray, device) -> torch.Tensor:
@@ -237,6 +238,127 @@ def refine_chanest_siso(xs: CF, h: CF, pilot_h: CF,
     h_im = torch.stack(out_im, dim=1)[:, :, None, :]
     return (CF(h_re, h_im),
             CF(h_re[:, :, 0][..., pidx], h_im[:, :, 0][..., pidx]))
+
+
+#: the HT/VHT-LTFs' start in a payload window: L-LTF, L-SIG, two SIG
+#: symbols and the HT/VHT-STF after the origin (``kNlLtf`` of K7)
+NL_LTF_START = 208 + 160 + 80
+
+
+def payload_chanest_ref(xs: CF, fmt: Fmt, nltf: int, nss: int,
+                        sigb_gi: int | None = None) -> tuple[CF, CF]:
+    """Plain twin of K7: the payload's channel estimate as eager torch
+    operations.  L: one L-LTF estimate an antenna; HT/VHT: the P-matrix
+    estimate, refined (:func:`refine_chanest_siso`) for one stream, with
+    HT's pilots summed over the streams.
+
+    xs: (B, nrx, n) derotated windows (origin = ltf_idx); ``sigb_gi``: the
+    VHT-SIG-B symbol's GI (VHT, one stream).  Returns (h (B, nrx, nss, 64),
+    pilot_h (B, nrx, 4))."""
+    pidx = _idx("PILOT_IDX", xs.device)
+    if fmt == Fmt.L:
+        h0 = cstack([legacy_chanest(xs[:, r], 0) for r in range(xs.shape[1])],
+                    dim=1)
+        return h0[:, :, None, :], h0[:, :, pidx]
+    h, pilot_h = nl_chanest(xs, NL_LTF_START, nltf, nss)
+    if nss == 1:
+        h, pilot_h = refine_chanest_siso(xs, h, pilot_h, fmt=fmt,
+                                         sigb_gi=sigb_gi)
+    if fmt == Fmt.HT:
+        pilot_h = csum(h[:, :, :, pidx], dim=2)
+    return h, pilot_h
+
+
+#: (name in ``csrc/payload_chanest.cu``, floats) of K7's constant table
+CHANEST_TABLE = (("kDftC", 4096), ("kDftS", 4096), ("kProjRe", 56 * 56),
+                 ("kProjIm", 56 * 56), ("kLInv", 64), ("kNlInv", 64),
+                 ("kDataL", 64), ("kActPos", 64), ("kPilot", 4),
+                 ("kPLtf", 16), ("kRLtf", 4), ("kPilotRef", 4))
+
+
+@functools.lru_cache(maxsize=None)
+def _chanest_table(device: torch.device) -> torch.Tensor:
+    """K7's constants in one float32 tensor on ``device``, built once:
+    the twin's DFT matrices and delay projector, the LTF inverses, the
+    legacy data mask, each tone's index among the 56 active ones (-1 off
+    them), the pilot tones, the P matrix, the R row and the pilots'
+    reference (layout ``CHANEST_TABLE``)."""
+    c, s = _dft64_mats()
+    act, p_re, p_im = _delay_projector(False)
+    dmask = np.zeros(64, np.float32)
+    dmask[T.DATA_IDX_L] = 1.0
+    act_pos = np.full(64, -1.0, np.float32)
+    act_pos[act] = np.arange(act.size)
+    parts = (c, s, p_re, p_im, _LTF_L_INV, _LTF_NL_INV, dmask, act_pos,
+             T.PILOT_IDX, T.P_LTF, T.R_LTF, _LTF_NL_REF[T.PILOT_IDX])
+    assert [np.size(a) for a in parts] == [n for _, n in CHANEST_TABLE]
+    tab = np.concatenate([np.ravel(a).astype(np.float32) for a in parts])
+    with trace.sync("table_upload"):
+        return torch.from_numpy(tab).to(device)
+
+
+@counted
+def payload_chanest(xs: CF, fmt: Fmt, nltf: int, nss: int,
+                    sigb_gi: int | None = None) -> tuple[CF, CF]:
+    """The payload's channel estimate of a bucket in one launch of K7
+    (``csrc/payload_chanest.cu``): what :func:`payload_chanest_ref`
+    computes, for every row and antenna.
+
+    xs: (B, nrx, n) float32 derotated windows; fmt, nltf, nss: the bucket's
+    config (nss 1 or 2); ``sigb_gi``: the VHT-SIG-B symbol's GI, used by
+    the one-stream refinement.  Returns (h (B, nrx, nss, 64), pilot_h (B,
+    nrx, 4)).  CPU tensors take the twin; CUDA tensors launch the kernel
+    or raise."""
+    require(xs.re.ndim == 3 and xs.im.shape == xs.re.shape,
+            f"payload_chanest takes (B, nrx, n) windows, got "
+            f"{tuple(xs.re.shape)} / {tuple(xs.im.shape)}")
+    require(xs.re.dtype == torch.float32 and xs.im.dtype == torch.float32,
+            "payload_chanest takes float32 windows")
+    require(nss in (1, 2) and (fmt == Fmt.L and nss == 1
+                               or fmt != Fmt.L and nss <= nltf <= 2),
+            f"payload_chanest: no estimate for {fmt!r} with nltf={nltf}, "
+            f"nss={nss}")
+    if not on_cuda(xs.re, xs.im):
+        return payload_chanest_ref(xs, fmt, nltf, nss, sigb_gi)
+    return _chanest_kernel(xs, fmt, nltf, nss, sigb_gi,
+                           refine=fmt != Fmt.L and nss == 1)
+
+
+def _chanest_kernel(xs: CF, fmt: Fmt, nltf: int, nss: int,
+                    sigb_gi: int | None, refine: bool) -> tuple[CF, CF]:
+    """Launch K7 on CUDA windows; ``refine`` runs the one-stream refinement
+    (``payload_chanest`` sets it for HT/VHT with one stream; without it a
+    one-stream bucket gets the P-matrix estimate alone)."""
+    require(xs.re.is_contiguous() and xs.im.is_contiguous(),
+            "payload_chanest takes contiguous windows")
+    B, nrx, n = xs.re.shape
+    legacy = fmt == Fmt.L
+    need = 128 if legacy else NL_LTF_START + 80 * nltf
+    sigb = sigb_gi if refine and sigb_gi is not None else -1
+    require(n >= max(need, sigb + 80),
+            f"payload_chanest: windows of {n} samples end before the "
+            f"training and SIG symbols it reads")
+    dev = xs.re.device
+    shape_h, shape_p = (B, nrx, 1 if legacy else nss, 64), (B, nrx, 4)
+    h = CF(torch.empty(shape_h, dtype=torch.float32, device=dev),
+           torch.empty(shape_h, dtype=torch.float32, device=dev))
+    pilot_h = CF(torch.empty(shape_p, dtype=torch.float32, device=dev),
+                 torch.empty(shape_p, dtype=torch.float32, device=dev))
+    if B == 0 or nrx == 0:
+        return h, pilot_h
+    launch("gr80211_payload_chanest", dev, xs.re.data_ptr(),
+           xs.im.data_ptr(), _chanest_table(dev).data_ptr(), h.re.data_ptr(),
+           h.im.data_ptr(), pilot_h.re.data_ptr(), pilot_h.im.data_ptr(), n,
+           B, nrx, int(fmt), 0 if legacy else nltf, nss, int(refine), sigb,
+           _L_TO_NL_GAIN, _REFINE_COH)
+    _K7.launches += 1
+    _K7.shapes.add((B, nrx, int(fmt), nss))
+    return h, pilot_h
+
+
+#: the counted wrapper, kept apart from the module attribute, which tools
+#: that time or capture the stage replace while the kernel runs under them
+_K7 = payload_chanest
 
 
 @functools.lru_cache(maxsize=None)

@@ -11,7 +11,7 @@ of a cell's results kept for a comparison between two trees.
 * ``ref``: the inputs of cell ``daemon_2x2_mixed_30dB`` from the seed, one
   warm pass of ``RxEngine(nrx=2)`` over its blocks, then one pass in
   which every two-stream bucket's ``_payload_core`` call keeps its
-  channel estimate (``ops.ofdm.nl_chanest``), its equalized symbols
+  channel estimate (``ops.ofdm.payload_chanest``), its equalized symbols
   (``ops.ofdm.zf_equalize``), its LLRs (``equalize_and_demap``) and its
   SERVICE and PSDU bits.  Each real row is then decoded by
   ``benchmark/reference/mimo_rx.py`` (float64, on the CPU) from the same
@@ -27,9 +27,18 @@ of a cell's results kept for a comparison between two trees.
   on a packet that either side decodes.
 * ``dump``: one pass of the cell's blocks (after a warm pass) through the
   engine of the tree ``--root`` (default this one), every kept result's
-  fields, ``psdu`` and ``sssnr0`` included, into ``--out``.
-* ``same``: whether two dumps agree field for field, bit for bit; exits
-  1 where they do not.
+  fields, ``psdu`` and ``sssnr0`` included, into ``--out``; beside them,
+  every ``_payload_core`` call's config, PSDU and SERVICE bits, FCS
+  flags and ``sssnr0``, and the channel estimate its equalizer took
+  (``ops.ofdm.equalize_and_demap``'s ``h`` and ``pilot_h``: the stage's
+  own, or the dd pass's where that ran).
+* ``same``: whether two dumps agree: every field, PSDU, SERVICE bit and
+  FCS flag bit for bit; every ``sssnr0`` within ``SSSNR_DB``; every
+  estimate of an L or two-stream call bit for bit, of a one-stream
+  HT/VHT call (refined: K7 and its twin sum the tones in other orders)
+  within ``REFINED_REL`` of the row's largest |h|.  Prints the largest
+  ``sssnr0`` and refined gaps; exits 1 where a field differs or a gap
+  passes its limit.
 """
 from __future__ import annotations
 
@@ -44,6 +53,10 @@ ROOT = Path(__file__).resolve().parents[1]
 CELL_2X2 = "daemon_2x2_mixed_30dB"
 FIELDS = ("trig", "start", "ok", "fmt", "mcs", "nss", "is_ndp", "cfo_hz",
           "snr_db", "rssi", "sssnr0")
+#: ``same``'s limits: dB on ``sssnr0``; a refined estimate's gap over the
+#: row's largest |h| (the card test's limit for K7 against its twin)
+SSSNR_DB = 0.01
+REFINED_REL = 1e-5
 
 
 def _cplx(x) -> np.ndarray:
@@ -73,7 +86,7 @@ def ref_pass(seed: int, device: str, small: bool = False):
 
     kept: list[dict] = []
     cur: dict = {}
-    orig = (RX.RxEngine._decode_bucket, RX._payload_core, OF.nl_chanest,
+    orig = (RX.RxEngine._decode_bucket, RX._payload_core, OF.payload_chanest,
             OF.zf_equalize, OF.equalize_and_demap)
 
     def bucket(self, d, canon, items, ltf_idx, cfo, *rest):
@@ -110,7 +123,7 @@ def ref_pass(seed: int, device: str, small: bool = False):
             cur["llr"] = llr.cpu().numpy()
         return llr
 
-    (RX.RxEngine._decode_bucket, RX._payload_core, OF.nl_chanest,
+    (RX.RxEngine._decode_bucket, RX._payload_core, OF.payload_chanest,
      OF.zf_equalize, OF.equalize_and_demap) = bucket, payload, chan, zf, demap
     try:
         for k, v in enumerate(views):
@@ -119,7 +132,7 @@ def ref_pass(seed: int, device: str, small: bool = False):
             for b in kept[cur_view:]:
                 b["view"] = k
     finally:
-        (RX.RxEngine._decode_bucket, RX._payload_core, OF.nl_chanest,
+        (RX.RxEngine._decode_bucket, RX._payload_core, OF.payload_chanest,
          OF.zf_equalize, OF.equalize_and_demap) = orig
     return inp, kept
 
@@ -216,33 +229,87 @@ def mode_ref(a) -> int:
 
 def mode_dump(a) -> int:
     sys.path.insert(0, str(Path(a.root).resolve() if a.root else ROOT))
-    from benchmark import core, generate
+    from benchmark import core, generate, generate_2x2
     from benchmark.run import load_cell
-    from gr_ieee80211_tpu_torch.models.rx import RxEngine
+    from gr_ieee80211_tpu_torch.models import rx as RX
+    from gr_ieee80211_tpu_torch.ops import ofdm as OF
     _, _, cfg, tr = load_cell(a.workload)
+    gen = generate_2x2 if cfg["nrx"] == 2 else generate
     with core.workers() as pool:
-        views = generate.make(tr, cfg, a.seed, pool)["views"]
-    eng = RxEngine(nrx=cfg["nrx"], device=a.device, **cfg["engine"])
+        views = gen.make(tr, cfg, a.seed, pool)["views"]
+    eng = RX.RxEngine(nrx=cfg["nrx"], device=a.device, **cfg["engine"])
     for v in views:
         eng.finish_process(eng.begin_process(v))
-    res = [r for v in views for r in eng.finish_process(eng.begin_process(v))]
+
+    calls: list[dict] = []
+    orig = (RX._payload_core, OF.equalize_and_demap)
+
+    def payload(canon, *x, **k):
+        calls.append({"cfg": np.array([int(canon.fmt), canon.mcs,
+                                       canon.nss])})
+        out = orig[0](canon, *x, **k)
+        calls[-1].update({f: out[f].cpu().numpy() for f in (
+            "psdu", "service", "fcs_ok", "mpdu_fcs_ok", "sssnr0")
+            if f in out})
+        return out
+
+    def demap(grids, h, pilot_h, *x, **k):
+        calls[-1].update(h=_cplx(h), pilot_h=_cplx(pilot_h))
+        return orig[1](grids, h, pilot_h, *x, **k)
+
+    RX._payload_core, OF.equalize_and_demap = payload, demap
+    try:
+        res = [r for v in views
+               for r in eng.finish_process(eng.begin_process(v))]
+    finally:
+        RX._payload_core, OF.equalize_and_demap = orig
     cols = {f: np.array([np.nan if getattr(r, f) is None
                          else float(getattr(r, f)) for r in res])
             for f in FIELDS}
     psdu = np.array([r.psdu.hex() for r in res])
-    np.savez(a.out, psdu=psdu, **cols)
+    per_call = {f"call{i:05d}.{k}": v for i, c in enumerate(calls)
+                for k, v in c.items()}
+    np.savez(a.out, psdu=psdu, **cols, **per_call)
     print(json.dumps({"mode": "dump", "root": a.root or str(ROOT),
-                      "results": len(res), "out": a.out}))
+                      "results": len(res), "calls": len(calls),
+                      "out": a.out}))
     return 0
 
 
 def mode_same(a) -> int:
     x, y = np.load(a.a), np.load(a.b)
-    differ = [k for k in x.files
-              if x[k].shape != y[k].shape or not np.array_equal(
-                  x[k], y[k], equal_nan=x[k].dtype.kind == "f")]
+    differ = sorted(set(x.files) ^ set(y.files))
+    ss_gap, h_gap = 0.0, 0.0
+    for k in sorted(set(x.files) & set(y.files)):
+        u, v = x[k], y[k]
+        if u.shape != v.shape:
+            differ.append(k)
+        elif k.endswith("sssnr0"):
+            both = np.isnan(u) == np.isnan(v)
+            d = np.abs(u - v)[~np.isnan(u) & ~np.isnan(v)]
+            ss_gap = max(ss_gap, float(d.max(initial=0.0)))
+            if not both.all() or ss_gap > SSSNR_DB:
+                differ.append(k)
+        elif k.endswith((".h", ".pilot_h")):
+            fmt, _, nss = x[k.rsplit(".", 1)[0] + ".cfg"]
+            if fmt == 0 or nss == 2:
+                if not np.array_equal(u, v):
+                    differ.append(k)
+                continue
+            ref = x[k.rsplit(".", 1)[0] + ".h"]
+            hmax = np.abs(ref).reshape(ref.shape[0], -1).max(axis=1)
+            gap = float((np.abs(u - v).reshape(u.shape[0], -1).max(axis=1)
+                         / hmax).max(initial=0.0))
+            h_gap = max(h_gap, gap)
+            if gap > REFINED_REL:
+                differ.append(k)
+        elif not np.array_equal(u, v, equal_nan=u.dtype.kind == "f"):
+            differ.append(k)
     print(json.dumps({"mode": "same", "results": int(x["psdu"].shape[0]),
-                      "fields_differ": differ}))
+                      "calls": sum(k.endswith(".cfg") for k in x.files),
+                      "sssnr0_max_gap_db": ss_gap,
+                      "refined_h_max_rel_gap": h_gap,
+                      "fields_differ": differ[:50]}))
     return 1 if differ else 0
 
 

@@ -18,7 +18,8 @@ Modes:
 * ``chain``: ``rx_chain_count`` on ``bench.py``'s stream (VHT MCS7, 530 B
   MPDU, B packets) at 32 and 18 dB, with detect and dedup, sync (window
   gather, coarse CFO, LTF metric and fine CFO), demod (derotate, channel
-  estimate, SISO refinement, dd gate and pass, symbol windows, DFT,
+  estimate with its SISO refinement (K7 on the card, one stage), dd gate
+  and pass, symbol windows, DFT,
   equalize and demap, deinterleave), decode (GF(2) inverse + syndrome,
   the tier taken, K1 + K2 inside ``viterbi_decode``), descramble, bytes
   and CRC as stages;
@@ -164,8 +165,7 @@ def chain_stages():
             (FE, "gather_windows_bf16"), (FE, "coarse_cfo_batch"),
             (FE, "ltf_fine_sync_cfo"), (FE, "_ltf_metric"),
             (PRX, "_payload_core"), (FE, "derotate_batch"),
-            (OF, "legacy_chanest"), (OF, "nl_chanest"),
-            (OF, "refine_chanest_siso"), (PRX, "_dd_gate"),
+            (OF, "payload_chanest"), (PRX, "_dd_gate"),
             (OF, "refine_chanest_data"), (OF, "extract_sym_windows"),
             (OF, "fft_syms"), (OF, "equalize_and_demap"),
             (OF, "deinterleave_deparse"), (PRX, "adaptive_decode"),

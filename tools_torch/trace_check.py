@@ -18,8 +18,9 @@
   pass.  Exits 1 where PyTorch's count of the port's own synchronizations
   and ``sync.total``'s differ (the tool's own call that turns the mode
   off reports one more, outside the port).  Beside them, the change of
-  the ``decode.*`` counters (rows, failed rows, calls by tier) and of the
-  kernel wrappers' launches over the pass.
+  the ``decode.*`` counters (rows, failed rows, calls by tier), of the
+  kernel wrappers' launches and of the bucket calls and rows over the
+  pass.
 * ``overhead``: untraced runs of the cell (``benchmark/run.py --trace
   0``), in turns with the program's spans off (as the benchmark runs)
   and forced on (``trace.enable()`` before the run), one seed, ``--runs``
@@ -130,7 +131,8 @@ def mode_sync(a) -> dict:
             "agree": in_port == counted.get("sync.total", 0),
             "counted_by_site": dict(sorted(counted.items())),
             "decode_and_launches": {k: v for k, v in sorted(moved.items())
-                                    if k.startswith(("decode.", "kernel."))},
+                                    if k.startswith(("decode.", "kernel.",
+                                                     "rx.bucket."))},
             "pytorch_by_line": dict(sorted(by_line.items(),
                                            key=lambda kv: -kv[1]))}
 
