@@ -9,15 +9,13 @@ Phases (any failure exits non-zero before the final line):
 
 1. device: require a CUDA card; print ``nvidia-smi``'s name and power limit;
 2. build: compile every kernel source (csrc/*.cu, one nvcc each, in
-   parallel) into one library, and beside them the earlier design of the
-   Viterbi kernels (tools_torch/earlier_viterbi.cu), which is only a
-   timing baseline; print each kernel's registers, shared memory and
-   spills as ``ptxas -v`` gave them (a spill in a package kernel fails);
+   parallel) into one library; print each kernel's registers, shared
+   memory and spills as ``ptxas -v`` gave them (a spill fails);
 3. kernels: the ACS (K1) and traceback (K2) kernels against their plain
    PyTorch twins on the card at the chain's shape (T = 4480, B = 4096)
    and at one engine bucket's (T = 4480, B = 64), pinned and uniform
    metrics, state-0 and argmax starts, exact equality, with CUDA-event
-   times of both and of the earlier design in turns; then the packed ACS
+   times of both; then the packed ACS
    (K4) and traceback (K5) against their twins and against K1/K2 (planes
    == the packing of K1's, metrics and bits equal) at the same two shapes
    and at ragged batches of both block sizes ((128, 100) and (128, 1100):
@@ -137,8 +135,12 @@ Phases (any failure exits non-zero before the final line):
    sharded programs (i) and in the tools (j), and at bench_long's
    trellis (T = 32320) in any case: the shapes the buckets of the
    canonical configs, the batch ladder, the tiers and the shards give
-   them, recorded by the wrappers where they launch (the kernels at each
+   them, counted by ``ops/cuda_lib.launch`` (the kernels at each
    shape, the twins once per T on the shapes' rows stacked).
+
+Kernel launches, their shapes and the decode tiers taken are the
+program's ``utils/trace`` counters, read as the difference of two
+snapshots around each run.
 
 The line before the last is a JSON object describing each kernel; the
 last is ``{"ok": true, "device": {...}}``.  Imports neither JAX nor the
@@ -151,6 +153,8 @@ import time
 from pathlib import Path
 
 import numpy as np
+
+from tools_torch import timing
 
 B = 4096
 MCS = 7
@@ -263,9 +267,9 @@ def hold_k1_k2(torch, VK, llrs, what):
     return err_acs, err_tb
 
 
-def phase_kernels(torch, VK, VD, earlier):
+def phase_kernels(torch, VK):
     """K1/K2 vs their twins at the chain's shape and at one engine bucket
-    shape, beside the earlier design; returns kernel records."""
+    shape; returns kernel records."""
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(7)
     llr = llr_pairs(torch, rng, dev)
@@ -278,17 +282,15 @@ def phase_kernels(torch, VK, VD, earlier):
     start0 = VK.state0_start(B, dev)
     dec, pm = VK.acs_sweep(llr, pinned)
     bits = VK.traceback_sweep(dec, start0)
-    both = VD.compare(earlier, llr, KERNEL_REPS)   # earlier, new, new, earlier
+    ms_acs = cuda_ms(lambda: VK.acs_sweep(llr, pinned), 2 * KERNEL_REPS)
+    ms_tb = cuda_ms(lambda: VK.traceback_sweep(dec, start0), 2 * KERNEL_REPS)
     plain_acs = cuda_ms(lambda: VK.acs_sweep_ref(llr, pinned), 1)
     plain_tb = cuda_ms(lambda: VK.traceback_ref(dec, start0), 1)
     dec_s, _ = VK.acs_sweep(small)
     small_acs = cuda_ms(lambda: VK.acs_sweep(small), KERNEL_REPS)
     small_tb = cuda_ms(lambda: VK.traceback_sweep(dec_s), KERNEL_REPS)
-    ms_acs, ms_tb = both["acs_ms"], both["tb_ms"]
-    log(f"kernels: acs_sweep {ms_acs:.3f} ms (earlier design "
-        f"{both['acs_earlier_ms']:.3f} ms, twin {plain_acs:.1f} ms), "
-        f"traceback_sweep {ms_tb:.3f} ms (earlier design "
-        f"{both['tb_earlier_ms']:.3f} ms, twin {plain_tb:.1f} ms) at "
+    log(f"kernels: acs_sweep {ms_acs:.3f} ms (twin {plain_acs:.1f} ms), "
+        f"traceback_sweep {ms_tb:.3f} ms (twin {plain_tb:.1f} ms) at "
         f"T={T_KERNEL} B={B}; at B={B_BUCKET}: {small_acs:.3f} ms and "
         f"{small_tb:.3f} ms")
     steps = B * T_KERNEL
@@ -299,20 +301,18 @@ def phase_kernels(torch, VK, VD, earlier):
          "max_abs_err": err_acs, "ms": ms_acs, "plain_ms": plain_acs,
          # 32 butterflies x (4 adds, 2 compares, 2 selects) a step
          **bound(nbytes(llr, pinned, dec, pm), 256 * steps),
-         "library_ms": None, "earlier_ms": both["acs_earlier_ms"],
-         f"ms_at_B{B_BUCKET}": small_acs},
+         "library_ms": None, f"ms_at_B{B_BUCKET}": small_acs},
         {"name": "traceback_sweep", "route": "cuda",
          "source": "gr_ieee80211_tpu_torch/csrc/viterbi.cu",
          "replaces": "gr_ieee80211_tpu/ops/viterbi_pallas.py:394",
          "max_abs_err": err_tb, "ms": ms_tb, "plain_ms": plain_tb,
          # select, shift, mask, shift-or a step
          **bound(nbytes(dec, start0, bits), 4 * steps),
-         "library_ms": None, "earlier_ms": both["tb_earlier_ms"],
-         f"ms_at_B{B_BUCKET}": small_tb},
+         "library_ms": None, f"ms_at_B{B_BUCKET}": small_tb},
     ]
 
 
-def phase_chain(torch, VK, CL, PRX, from_numpy_cf, bench):
+def phase_chain(torch, VK, PRX, from_numpy_cf, bench):
     """The port's chain on the bench streams; returns launch counts."""
     cfg, mpdu, am, _, streams = bench
     dev = torch.device("cuda", 0)
@@ -321,18 +321,17 @@ def phase_chain(torch, VK, CL, PRX, from_numpy_cf, bench):
         f"T {cfg.n_trellis}, stream {devs[SNR_HI].shape[-1]} samples, "
         f"{B} packets")
 
-    def run(snr, record=None):
+    def run(snr):
         return PRX.rx_chain_count(cfg, devs[snr], mpdu_len=len(mpdu),
-                                  max_pkts=B, record=record)
+                                  max_pkts=B)
 
-    # the main path: both operating points, counters from zero
-    records = {SNR_HI: [], SNR_LO: []}
-    results, launches = {}, {}
+    # the main path: both operating points, the counters' change over each
+    records, results, launches = {}, {}, {}
     for snr in (SNR_HI, SNR_LO):
-        CL.reset_launch_counts()
-        results[snr] = tuple(int(x) for x in run(snr, records[snr]))
-        torch.cuda.synchronize()
-        counts = CL.launch_counts()
+        res, moved = timing.with_counters(lambda: run(snr), dev)
+        results[snr] = tuple(int(x) for x in res)
+        records[snr] = timing.decode_path(moved)
+        counts = timing.kernel_launches(moved)["launches"]
         log(f"chain {snr:g} dB: (n_ok, n_det) = {results[snr]}, "
             f"path {records[snr]}, kernel launches {counts}")
         for k, v in counts.items():
@@ -377,11 +376,12 @@ def phase_reference(torch, PRX, from_numpy_cf, bench):
     stream = channel.awgn(stream, rms / 10 ** (20 / 20), rng)
     outs = []
     for dev in ("cuda", "cpu"):
-        rec = []
-        ok, ltf, valid = PRX.rx_chain_ok(cfg, from_numpy_cf(stream, dev),
-                                         mpdu_len=len(mpdu), max_pkts=16,
-                                         record=rec)
-        outs.append((ok.cpu(), ltf.cpu(), valid.cpu(), rec))
+        x = from_numpy_cf(stream, dev)
+        (ok, ltf, valid), moved = timing.with_counters(
+            lambda: PRX.rx_chain_ok(cfg, x, mpdu_len=len(mpdu), max_pkts=16),
+            torch.device(dev))
+        outs.append((ok.cpu(), ltf.cpu(), valid.cpu(),
+                     timing.decode_path(moved)))
     (ok_g, ltf_g, va_g, rec_g), (ok_c, ltf_c, va_c, rec_c) = outs
     check(torch.equal(va_g, va_c) and torch.equal(ltf_g, ltf_c),
           "card and CPU disagree on detection/timing")
@@ -434,9 +434,8 @@ def hold_k4_k5(torch, VK, llr, what):
     return err_acs, err_tb
 
 
-def phase_kernels_extra(torch, VK, VD, FE, earlier):
-    """K4/K5 vs their twins and K1/K2, beside the earlier design; K3 vs
-    its twin; returns records."""
+def phase_kernels_extra(torch, VK, FE):
+    """K4/K5 vs their twins and K1/K2; K3 vs its twin; returns records."""
     rng = np.random.default_rng(9)
     dev = torch.device("cuda", 0)
     llr = llr_pairs(torch, rng, dev)
@@ -459,8 +458,10 @@ def phase_kernels_extra(torch, VK, VD, FE, earlier):
     start0 = VK.state0_start(B, dev)
     pl, ph, ppm = VK.acs_sweep_packed(l0, l1, pinned)
     bits = VK.traceback_sweep_packed(pl, ph, start0)
-    both = VD.compare_packed(earlier, llr, KERNEL_REPS)   # in turns
-    ms_acs, ms_tb = both["acs_packed_ms"], both["tb_packed_ms"]
+    ms_acs = cuda_ms(lambda: VK.acs_sweep_packed(l0, l1, pinned),
+                     2 * KERNEL_REPS)
+    ms_tb = cuda_ms(lambda: VK.traceback_sweep_packed(pl, ph, start0),
+                    2 * KERNEL_REPS)
     plain_acs = cuda_ms(lambda: VK.acs_sweep_packed_ref(l0, l1, pinned), 1)
     plain_tb = cuda_ms(lambda: VK.traceback_packed_ref(pl, ph, start0), 1)
     s0 = small[:, :, 0].T.contiguous()
@@ -470,11 +471,9 @@ def phase_kernels_extra(torch, VK, VD, FE, earlier):
     small_tb = cuda_ms(lambda: VK.traceback_sweep_packed(sl, sh), KERNEL_REPS)
     bound_k4 = bound(nbytes(l0, l1, pinned, pl, ph, ppm), 256 * B * T_KERNEL)
     bound_k5 = bound(nbytes(pl, ph, start0, bits), 4 * B * T_KERNEL)
-    log(f"kernels: acs_sweep_packed {ms_acs:.3f} ms (earlier design "
-        f"{both['acs_packed_earlier_ms']:.3f} ms, twin {plain_acs:.1f} ms), "
-        f"traceback_sweep_packed {ms_tb:.3f} ms (earlier design "
-        f"{both['tb_packed_earlier_ms']:.3f} ms, twin {plain_tb:.1f} ms) at "
-        f"T={T_KERNEL} B={B}; at B={B_BUCKET}: {small_acs:.3f} ms and "
+    log(f"kernels: acs_sweep_packed {ms_acs:.3f} ms (twin {plain_acs:.1f} "
+        f"ms), traceback_sweep_packed {ms_tb:.3f} ms (twin {plain_tb:.1f} "
+        f"ms) at T={T_KERNEL} B={B}; at B={B_BUCKET}: {small_acs:.3f} ms and "
         f"{small_tb:.3f} ms")
 
     # K3: tolerance 1e-5 of the sample scale (the precise sincosf and
@@ -511,7 +510,7 @@ def phase_kernels_extra(torch, VK, VD, FE, earlier):
          "source": "gr_ieee80211_tpu_torch/csrc/derotate.cu",
          "replaces": "gr_ieee80211_tpu/ops/frontend.py:492",
          "max_abs_err": err_dr, "ms": t_chain[0], "plain_ms": t_chain[1],
-         **bounds[(4096, 1984)], "library_ms": None, "earlier_ms": None,
+         **bounds[(4096, 1984)], "library_ms": None,
          "factored_ms": t_chain[2],
          "ms_at_128x100000": times[(128, 100_000)][0],
          "plain_ms_at_128x100000": times[(128, 100_000)][1]},
@@ -519,16 +518,12 @@ def phase_kernels_extra(torch, VK, VD, FE, earlier):
          "source": "gr_ieee80211_tpu_torch/csrc/viterbi.cu",
          "replaces": "gr_ieee80211_tpu/ops/viterbi_pallas.py:208",
          "max_abs_err": err_acs, "ms": ms_acs, "plain_ms": plain_acs,
-         **bound_k4, "library_ms": None,
-         "earlier_ms": both["acs_packed_earlier_ms"],
-         f"ms_at_B{B_BUCKET}": small_acs},
+         **bound_k4, "library_ms": None, f"ms_at_B{B_BUCKET}": small_acs},
         {"name": "traceback_sweep_packed", "route": "cuda",
          "source": "gr_ieee80211_tpu_torch/csrc/viterbi.cu",
          "replaces": "gr_ieee80211_tpu/ops/viterbi_pallas.py:275",
          "max_abs_err": err_tb, "ms": ms_tb, "plain_ms": plain_tb,
-         **bound_k5, "library_ms": None,
-         "earlier_ms": both["tb_packed_earlier_ms"],
-         f"ms_at_B{B_BUCKET}": small_tb},
+         **bound_k5, "library_ms": None, f"ms_at_B{B_BUCKET}": small_tb},
     ]
 
 
@@ -584,7 +579,6 @@ def phase_scan_viterbi(torch, V):
             "source": "gr_ieee80211_tpu_torch/csrc/scan_viterbi.cu",
             "replaces": None, "max_abs_err": 0.0,
             **times[(B_, T_)], **k6_bound, "library_ms": None,
-            "earlier_ms": None,
             **{f"{k}_at_{b}x{t}": v for (b, t), tm in times.items()
                if (b, t) != (B_, T_) for k, v in tm.items()}}
 
@@ -656,7 +650,7 @@ def phase_payload_chanest(torch, OF):
             "source": "gr_ieee80211_tpu_torch/csrc/payload_chanest.cu",
             "replaces": None, "max_abs_err": worst,
             **{k2: v for k2, v in times[tag].items() if k2 != "gap"},
-            **k7_bound, "library_ms": None, "earlier_ms": None,
+            **k7_bound, "library_ms": None,
             **{f"{k2}_at_{t}": v for t, tm in times.items() if t != tag
                for k2, v in tm.items()}}
 
@@ -792,15 +786,15 @@ def check_sent(results, sent, what):
           f"once, first at {missed[:5]}")
 
 
-def phase_engine(torch, CL, PRX, bench, chain_ok):
+def phase_engine(torch, PRX, bench, chain_ok):
     """The general engine at full size; returns per-kernel launch counts
-    summed over its runs (counts zeroed before each, read after), the
-    timing of (b) and K1/K2's launch shapes."""
+    summed over its runs (the counters' change over each), the timing of
+    (b) and K1/K2's launch shapes."""
     from gr_ieee80211_tpu_torch.spec.params import Fmt
     launches, shapes = {}, set()
 
-    def counted(fn, what):
-        out, counts = counted_run(torch, CL, fn, f"engine {what}", shapes)
+    def tally(fn, what):
+        out, counts = counted_run(torch, fn, f"engine {what}", shapes)
         for k, v in counts.items():
             launches[k] = launches.get(k, 0) + v
         return out
@@ -808,8 +802,8 @@ def phase_engine(torch, CL, PRX, bench, chain_ok):
     # (a) the bench's 32 dB stream
     cfg, mpdu, _, _, streams = bench
     tic = time.perf_counter()
-    res = counted(lambda: PRX.RxEngine(nrx=1).process(streams[SNR_HI]),
-                  "(a)")
+    res = tally(lambda: PRX.RxEngine(nrx=1).process(streams[SNR_HI]),
+                "(a)")
     secs = time.perf_counter() - tic
     n_ok = sum(r.ok for r in res)
     check(len(res) == B and all(r.fmt == Fmt.VHT and r.mcs == MCS
@@ -831,8 +825,8 @@ def phase_engine(torch, CL, PRX, bench, chain_ok):
     # is not timed; then bucket-only and speculative passes alternate
     for i, spec in enumerate((False, False, True, True, False)):
         eng = PRX.RxEngine(nrx=1, speculate=spec)
-        got, kinds, secs = counted(lambda: run_blocks(eng, stream),
-                                   f"(b) pass {i} speculate={spec}")
+        got, kinds, secs = tally(lambda: run_blocks(eng, stream),
+                                 f"(b) pass {i} speculate={spec}")
         check_sent(got, sent, f"engine (b) speculate={spec}")
         if i == 0:
             log(f"engine (b) warm-up pass: {1e3 * sum(secs) / N_BLOCKS:.1f} "
@@ -864,7 +858,7 @@ def phase_engine(torch, CL, PRX, bench, chain_ok):
         pos += 400 + wave.shape[-1]
     x2 = np.concatenate(parts + [np.zeros((2, 400), complex)], axis=1)
     x2 = channel.awgn(x2, 10 ** (-35 / 20), rng).astype(np.complex64)
-    res2 = counted(lambda: PRX.RxEngine(nrx=2).process(x2), "(c)")
+    res2 = tally(lambda: PRX.RxEngine(nrx=2).process(x2), "(c)")
     check_sent(res2, sent2, "engine (c) 2x2")
     log(f"engine (c): {len(res2)}/24 HT MCS8-15 / VHT 2-SS packets decoded "
         "on 2 antennas")
@@ -959,19 +953,17 @@ def add_noise(torch, CF, base, rms, snr_db, gen):
     return CF((base.re + nz[0])[None], (base.im + nz[1])[None])
 
 
-def counted_run(torch, CL, fn, what, shapes=None):
-    """``fn()`` with the kernels' launch counts zeroed before and read
-    after: (result, counts).  K1/K2's launch shapes (B, T) go into the
-    set ``shapes`` when one is given."""
-    CL.reset_launch_counts()
-    out = fn()
-    torch.cuda.synchronize()
-    counts = CL.launch_counts()
-    log(f"{what}: kernel launches {counts}")
+def counted_run(torch, fn, what, shapes=None):
+    """``fn()`` and each kernel's launches over it (the change of the
+    program's counters): (result, counts).  K1/K2's launch shapes (B, T)
+    go into the set ``shapes`` when one is given."""
+    out, moved = timing.with_counters(fn, torch.device("cuda", 0))
+    kern = timing.kernel_launches(moved)
+    log(f"{what}: kernel launches {kern['launches']}, decode path "
+        f"{timing.decode_path(moved)}")
     if shapes is not None:
-        got = CL.launch_shapes()
-        shapes |= got["acs_sweep"] | got["traceback_sweep"]
-    return out, counts
+        shapes |= {tuple(bt) for bt in kern["k1_k2_shapes"]}
+    return out, kern["launches"]
 
 
 def timed(torch, fn, what, n_items, unit, smi):
@@ -982,7 +974,7 @@ def timed(torch, fn, what, n_items, unit, smi):
     return ms
 
 
-def phase_tx_su(torch, CL, PRX, PTX, CF, bench, smi):
+def phase_tx_su(torch, PRX, PTX, CF, bench, smi):
     """(e) the port's transmitter feeds the port's chain at full width."""
     from gr_ieee80211_tpu_torch.gold import tx as gtx
     cfg = bench[0]
@@ -1012,10 +1004,9 @@ def phase_tx_su(torch, CL, PRX, PTX, CF, bench, smi):
     gen = torch.Generator(device=dev).manual_seed(43)
     stream = add_noise(torch, CF, base, rms, SNR_HI, gen)
     ml = len(mpdus[0])
-    rec = []
     (n_ok, n_det), counts = counted_run(
-        torch, CL, lambda: tuple(int(x) for x in PRX.rx_chain_count(
-            cfg, stream, mpdu_len=ml, max_pkts=B, record=rec)), "tx (e) chain")
+        torch, lambda: tuple(int(x) for x in PRX.rx_chain_count(
+            cfg, stream, mpdu_len=ml, max_pkts=B)), "tx (e) chain")
     check(n_det == B, f"(e) detected {n_det} of {B}")
     check(n_ok >= 0.99 * B, f"(e) only {n_ok} of {B} passed FCS")
     ok, ltf, valid = PRX.rx_chain_ok(cfg, stream, mpdu_len=ml, max_pkts=B)
@@ -1030,7 +1021,7 @@ def phase_tx_su(torch, CL, PRX, PTX, CF, bench, smi):
     check(bool((out["psdu"][:, : cfg.length] == arr_d[rows]).all()),
           "(e) decoded PSDU bytes differ from the bytes sent")
     log(f"tx (e): own transmitter -> chain at {SNR_HI:g} dB: {n_det}/{B} "
-        f"detected, {n_ok} ok, path {rec}, {len(rows)} sampled PSDUs equal "
+        f"detected, {n_ok} ok, {len(rows)} sampled PSDUs equal "
         "the bytes sent")
     ms = timed(torch, lambda: PTX.tx_batch(cfg, arr_d, seeds_d),
                f"tx_batch B={B} VHT mcs{MCS} 530 B MPDU", B, "pkt", smi)
@@ -1143,7 +1134,7 @@ def mu_heard(torch, CF, waves, h):
     return waves[:, 0] * taps[0] + waves[:, 1] * taps[1]
 
 
-def phase_mu_loop(torch, VK, CL, PRX, PTX, CF, from_numpy_cf, smi):
+def phase_mu_loop(torch, VK, PRX, PTX, CF, from_numpy_cf, smi):
     """(g), (g'): NDP sounding -> ZF Q -> precoded MU PPDUs -> each
     station's decode, through the entry points, on the card.  K1/K2 are
     held to their twins at the shape each user's decode gives them."""
@@ -1204,14 +1195,12 @@ def phase_mu_loop(torch, VK, CL, PRX, PTX, CF, from_numpy_cf, smi):
         cfg = mu_user_cfg(mu, u)
         ml = len(sent[u][0])
 
-        def count(c, st, record=None):
+        def count(c, st):
             return tuple(int(x) for x in PRX.rx_chain_count_mu(
-                c, st, n_total=2, own=u, mpdu_len=ml, max_pkts=B_MU,
-                record=record))
+                c, st, n_total=2, own=u, mpdu_len=ml, max_pkts=B_MU))
 
-        rec = []
         (n_ok, n_det), counts = counted_run(
-            torch, CL, lambda: count(cfg, stream, rec),
+            torch, lambda: count(cfg, stream),
             f"mu (g) user {u} chain")
         add(launches["mu"], counts)
         check(n_det == B_MU, f"(g) user {u}: detected {n_det} of {B_MU}")
@@ -1223,7 +1212,7 @@ def phase_mu_loop(torch, VK, CL, PRX, PTX, CF, from_numpy_cf, smi):
         check(n_det_w == B_MU and n_ok_w == 0,
               f"(g) user {u}: a wrong-MCS config counted {n_ok_w} ok")
         log(f"mu (g) user {u}: rx_chain_count_mu at {SNR_HI:g} dB "
-            f"{n_det}/{B_MU} detected, {n_ok} ok, path {rec}; wrong-MCS "
+            f"{n_det}/{B_MU} detected, {n_ok} ok; wrong-MCS "
             f"config {n_ok_w} ok")
 
         # the general engine on daemon-shaped blocks of the same stream
@@ -1233,7 +1222,7 @@ def phase_mu_loop(torch, VK, CL, PRX, PTX, CF, from_numpy_cf, smi):
                                         np.complex64)])
         eng = PRX.RxEngine(nrx=1, mu_pos=u, mu_gid=2)
         (res, _, secs), counts = counted_run(
-            torch, CL, lambda: run_blocks(eng, x, n_blocks),
+            torch, lambda: run_blocks(eng, x, n_blocks),
             f"mu (g) user {u} engine")
         add(launches["mu"], counts)
         n_dec = check_mu_results(res, sent[u], spacing, f"(g) user {u} engine")
@@ -1250,15 +1239,16 @@ def phase_mu_loop(torch, VK, CL, PRX, PTX, CF, from_numpy_cf, smi):
 
         # (g') an SNR where rows leave the algebraic fast path
         lo = add_noise(torch, CF, base, rms, SNR_MU_LO, gen)
-        rec = []
-        (n_ok_lo, n_det_lo), counts = counted_run(
-            torch, CL, lambda: count(cfg, lo, rec),
-            f"mu (g') user {u} chain at {SNR_MU_LO:g} dB")
+        (n_ok_lo, n_det_lo), moved = timing.with_counters(
+            lambda: count(cfg, lo), dev)
+        counts = timing.kernel_launches(moved)["launches"]
+        rec = timing.decode_path(moved)
         add(launches["mu_lo"], counts)
         out["mu_lo_n_ok"].append(n_ok_lo)
         log(f"mu (g') user {u}: {SNR_MU_LO:g} dB: {n_det_lo}/{B_MU} detected, "
-            f"{n_ok_lo} ok (recorded, not bounded), path {rec}")
-        check(rec and rec[-1] != "fast" and counts["acs_sweep"] > 0
+            f"{n_ok_lo} ok (recorded, not bounded), path {rec}, kernel "
+            f"launches {counts}")
+        check(rec and rec != ["fast"] and counts["acs_sweep"] > 0
               and counts["traceback_sweep"] > 0,
               f"(g') user {u}: the MU decode at {SNR_MU_LO:g} dB never "
               f"launched K1/K2: path {rec}, {counts}")
@@ -1418,7 +1408,7 @@ def replay(NAT, RS, U, eng, stream, what, mac=None, on_result=None):
     return streamer, stream_run(streamer, [ring], feed, what)
 
 
-def phase_replay(torch, CL, PRX, NAT, RS, U, engine_ms, smi, shapes):
+def phase_replay(torch, PRX, NAT, RS, U, engine_ms, smi, shapes):
     """(h1) engine (b)'s daemon stream replayed through IqRing ->
     RxStreamer -> RxEngine -> PhyRxReporter -> a MAC listener."""
     stream, sent = daemon_stream(np.random.default_rng(23))
@@ -1426,7 +1416,7 @@ def phase_replay(torch, CL, PRX, NAT, RS, U, engine_ms, smi, shapes):
     results = []
     mac = MacListener()
     (streamer, t_first), counts = counted_run(
-        torch, CL, lambda: replay(NAT, RS, U, eng, stream, "(h1)", mac,
+        torch, lambda: replay(NAT, RS, U, eng, stream, "(h1)", mac,
                                   results.append),
         "stream (h1) replay", shapes)
     check_sent(results, sent, "stream (h1)")
@@ -1531,14 +1521,14 @@ def loopback(torch, PRX, NAT, RS, U, reqs, sent, nrx, what):
     return stats, n_data + n_ndp
 
 
-def phase_loopback(torch, CL, PRX, NAT, RS, U, shapes):
+def phase_loopback(torch, PRX, NAT, RS, U, shapes):
     """(h2) the rx.grc/tx.grc loopback, MAC to MAC, at 1 and 2 antennas."""
     from gr_ieee80211_tpu_torch.gold import mac
     from gr_ieee80211_tpu_torch.spec.params import Fmt
     rng = np.random.default_rng(37)
     reqs, sent = loopback_requests(rng)
     (st1, n1), c1 = counted_run(
-        torch, CL, lambda: loopback(torch, PRX, NAT, RS, U, reqs, sent, 1,
+        torch, lambda: loopback(torch, PRX, NAT, RS, U, reqs, sent, 1,
                                     "stream (h2) 1 antenna"),
         "stream (h2) 1 antenna", shapes)
     # tests/test_streaming2x2.py's traffic, widened: VHT 2-SS bursts carry
@@ -1555,7 +1545,7 @@ def phase_loopback(torch, CL, PRX, NAT, RS, U, shapes):
         sent2.append((k, dict(fmt=Fmt.VHT, mcs=mcs, mpdus=[mpdu],
                               is_ndp=False)))
     (st2, n2), c2 = counted_run(
-        torch, CL, lambda: loopback(torch, PRX, NAT, RS, U, reqs2, sent2, 2,
+        torch, lambda: loopback(torch, PRX, NAT, RS, U, reqs2, sent2, 2,
                                     "stream (h2) 2 antennas"),
         "stream (h2) 2 antennas", shapes)
     counts = {k: c1[k] + c2[k] for k in c1}
@@ -1622,7 +1612,7 @@ def phase_daemon(stream, sent):
             "h4_datagrams": n_data + n_ndp}
 
 
-def phase_streaming(torch, CL, PRX, engine_ms, smi):
+def phase_streaming(torch, PRX, engine_ms, smi):
     """(h) the streaming runtime and daemons on the card; returns the
     kernels' launch counts of (h1) + (h2) and K1/K2's launch shapes there
     (the streaming numbers go to a log line)."""
@@ -1631,9 +1621,9 @@ def phase_streaming(torch, CL, PRX, engine_ms, smi):
     from gr_ieee80211_tpu_torch.runtime import udp_phy as U
     check(NAT.available(), "(h): the native runtime (libphyrt) did not load")
     shapes = set()
-    c1, out, stream, sent = phase_replay(torch, CL, PRX, NAT, RS, U,
+    c1, out, stream, sent = phase_replay(torch, PRX, NAT, RS, U,
                                          engine_ms, smi, shapes)
-    c2, out2 = phase_loopback(torch, CL, PRX, NAT, RS, U, shapes)
+    c2, out2 = phase_loopback(torch, PRX, NAT, RS, U, shapes)
     phase_cmu_demo()
     out.update(out2)
     out.update(phase_daemon(stream, sent))
@@ -1753,7 +1743,7 @@ def mesh_workers(mode, n_local, iq, dev, extra=()):
     return res
 
 
-def phase_mesh(torch, CL, PRX, CF, from_numpy_cf, bench, chain_res,
+def phase_mesh(torch, PRX, CF, from_numpy_cf, bench, chain_res,
                station0, dev, smi):
     """(i) the sharded programs on the card at the bench's size; returns
     (the kernels' launch counts, K1/K2's launch shapes, the mesh line)."""
@@ -1770,8 +1760,8 @@ def phase_mesh(torch, CL, PRX, CF, from_numpy_cf, bench, chain_res,
     out = {"shards": n, "devices": [str(d) for d in mesh_sp.shards],
            "shard_samples": len(streams[SNR_HI]) // n}
 
-    def counted(fn, what):
-        res, counts = counted_run(torch, CL, fn, f"mesh {what}", shapes)
+    def tally(fn, what):
+        res, counts = counted_run(torch, fn, f"mesh {what}", shapes)
         for k, v in counts.items():
             launches[k] = launches.get(k, 0) + v
         return res, counts
@@ -1783,8 +1773,8 @@ def phase_mesh(torch, CL, PRX, CF, from_numpy_cf, bench, chain_res,
     sp = {}
     for snr in (SNR_HI, SNR_LO):
         st = from_numpy_cf(streams[snr], dev)
-        rec, counts = counted(lambda: tuple(int(x) for x in chain(st)),
-                              f"(i1) rx_chain_sp {snr:g} dB")
+        rec, counts = tally(lambda: tuple(int(x) for x in chain(st)),
+                            f"(i1) rx_chain_sp {snr:g} dB")
         sp[snr] = rec
         check(rec[1] == B, f"(i1) {snr:g} dB: detected {rec[1]} of {B}")
         if snr == SNR_HI:
@@ -1817,7 +1807,7 @@ def phase_mesh(torch, CL, PRX, CF, from_numpy_cf, bench, chain_res,
     max_out = 3 * B // n
     det = M.frontend_sp(mesh_sp, max_out_per_shard=max_out)
     st = from_numpy_cf(base, dev)
-    cand, _ = counted(lambda: det(st).cpu().numpy(), "(i3) frontend_sp")
+    cand, _ = tally(lambda: det(st).cpu().numpy(), "(i3) frontend_sp")
     per_shard = (cand >= 0).sum(axis=1)
     check(per_shard.max() < max_out, f"(i3) a shard filled {max_out} slots")
     trigs = PRX.dedup_triggers(np.sort(cand[cand >= 0]))
@@ -1840,7 +1830,7 @@ def phase_mesh(torch, CL, PRX, CF, from_numpy_cf, bench, chain_res,
     starts = 1024 + spacing * np.arange(B) + 188
     wins = streams[SNR_HI][starts[:, None] + np.arange(n_samp)[None]]
     wd = from_numpy_cf(wins, dev)
-    (psdu, ok, total), counts = counted(lambda: step(wd), "(i4) dp decode")
+    (psdu, ok, total), counts = tally(lambda: step(wd), "(i4) dp decode")
     total = int(total)
     check(total == int(ok.sum()), f"(i4) total {total} != {int(ok.sum())}")
     check(total >= 0.99 * B, f"(i4) only {total} of {B} passed FCS")
@@ -1870,7 +1860,7 @@ def phase_mesh(torch, CL, PRX, CF, from_numpy_cf, bench, chain_res,
                                          nrx=2)
     w2 = from_numpy_cf(np.tile(mixed[:, 188: 188 + n_samp2][None],
                                (B_DP2, 1, 1)).astype(np.complex64), dev)
-    (_, _, total2), _ = counted(lambda: step2(w2), "(i4) dp 2x2 decode")
+    (_, _, total2), _ = tally(lambda: step2(w2), "(i4) dp 2x2 decode")
     check(int(total2) == B_DP2, f"(i4) 2x2: {int(total2)} of {B_DP2} ok")
     ms2 = median_ms(torch, lambda: step2(w2), reps=3, warm=False)
     log(f"mesh (i4) payload_decode_dp nrx=2: {B_DP2} VHT mcs2 2-SS windows "
@@ -1891,8 +1881,8 @@ def phase_mesh(torch, CL, PRX, CF, from_numpy_cf, bench, chain_res,
         s = add_noise(torch, CF, base_u, rms_u, snr, gen)
         caps = CF(s.re[0, c0: c0 + n * L].reshape(n, L),
                   s.im[0, c0: c0 + n * L].reshape(n, L))
-        rec, counts = counted(lambda: tuple(int(x) for x in mu_chain(caps)),
-                              f"(i5) mu_chain_dp {snr:g} dB")
+        rec, counts = tally(lambda: tuple(int(x) for x in mu_chain(caps)),
+                            f"(i5) mu_chain_dp {snr:g} dB")
         if snr == SNR_HI:
             check(rec[1] == B_MU and rec[0] >= 0.99 * B_MU,
                   f"(i5) 32 dB: {rec} of {B_MU}")
@@ -1941,7 +1931,7 @@ def phase_mesh(torch, CL, PRX, CF, from_numpy_cf, bench, chain_res,
     import contextlib
     import io
     fn, args = E.entry(dev.type)
-    psdu, _ = counted(lambda: fn(*args), "(i7) entry")
+    psdu, _ = tally(lambda: fn(*args), "(i7) entry")
     want = (8, PhyConfig(Fmt.VHT, 7, 1, 520, ampdu=True).psdu_len)
     check(tuple(psdu.shape) == want and psdu.dtype == torch.uint8
           and psdu.device.type == dev.type,
@@ -1952,7 +1942,7 @@ def phase_mesh(torch, CL, PRX, CF, from_numpy_cf, bench, chain_res,
         with contextlib.redirect_stdout(buf):
             E.dryrun_multichip(n, device=dev.type)
 
-    counted(dryrun, "(i7) dryrun_multichip")
+    tally(dryrun, "(i7) dryrun_multichip")
     line = buf.getvalue().strip().splitlines()[-1]
     check(line.startswith("dryrun ok:"), f"(i7) dryrun printed {line!r}")
     log(f"mesh (i7): entry() psdu {tuple(psdu.shape)} {psdu.dtype}; "
@@ -2302,7 +2292,6 @@ def main() -> int:
     from gr_ieee80211_tpu_torch.ops import viterbi_kernels as VK
     from gr_ieee80211_tpu_torch.ops.cplx import CF, from_numpy_cf
     from tools_torch import bench as TB
-    from tools_torch import viterbi_designs as VD
     check_self_contained()
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2313,17 +2302,13 @@ def main() -> int:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
 
-    earlier_build = VD.start_build()     # beside the package's sources
     _, secs, build_log = CL.build()
-    earlier, earlier_log = VD.finish_build(earlier_build)
-    log(f"build: {secs:.1f} s ({len(CL.sources())} sources, and the earlier "
-        "Viterbi design as a baseline)")
-    for line in (build_log + earlier_log).splitlines():
+    log(f"build: {secs:.1f} s ({len(CL.sources())} sources)")
+    for line in build_log.splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             log(f"  {line.strip()}")
     ptxas = ptxas_summary(build_log)
-    log(json.dumps({"ptxas": ptxas,
-                    "ptxas_earlier": ptxas_summary(earlier_log)}))
+    log(json.dumps({"ptxas": ptxas}))
     check({k.split("<")[0] for k in ptxas} == {
         "acs_kernel", "traceback_kernel", "derotate_kernel",
         "acs_packed_kernel", "traceback_packed_kernel",
@@ -2332,27 +2317,27 @@ def main() -> int:
     spilled = {k: v for k, v in ptxas.items() if v["spill_bytes"]}
     check(not spilled, f"package kernels spill registers: {spilled}")
 
-    kernels = (phase_kernels(torch, VK, VD, earlier)
-               + phase_kernels_extra(torch, VK, VD, FE, earlier)
+    kernels = (phase_kernels(torch, VK)
+               + phase_kernels_extra(torch, VK, FE)
                + [phase_scan_viterbi(torch, V),
                   phase_payload_chanest(torch, OF)])
     bench = TB.bench_streams(B)         # bench.py's streams
-    launches, chain_ok, chain_res = phase_chain(torch, VK, CL, PRX,
+    launches, chain_ok, chain_res = phase_chain(torch, VK, PRX,
                                                 from_numpy_cf, bench)
     phase_reference(torch, PRX, from_numpy_cf, bench)
     engine_launches, engine_timing, engine_shapes = phase_engine(
-        torch, CL, PRX, bench, chain_ok)
+        torch, PRX, bench, chain_ok)
     phase_engine_reference(torch, PRX)
-    tx_launches, tx_su = phase_tx_su(torch, CL, PRX, PTX, CF, bench, smi)
+    tx_launches, tx_su = phase_tx_su(torch, PRX, PTX, CF, bench, smi)
     tx_mu = phase_tx_mu(torch, PTX, from_numpy_cf, smi)
     mu_launches, mu_out, mu_errs, station0 = phase_mu_loop(
-        torch, VK, CL, PRX, PTX, CF, from_numpy_cf, smi)
+        torch, VK, PRX, PTX, CF, from_numpy_cf, smi)
     # engine (b) with speculation, as the streamer's engine runs
     engine_ms = 1e3 * float(np.mean(engine_timing[True])) / N_BLOCKS
-    stream_launches, stream_shapes = phase_streaming(torch, CL, PRX,
+    stream_launches, stream_shapes = phase_streaming(torch, PRX,
                                                      engine_ms, smi)
     mesh_launches, mesh_shapes = phase_mesh(
-        torch, CL, PRX, CF, from_numpy_cf, bench, chain_res, station0,
+        torch, PRX, CF, from_numpy_cf, bench, chain_res, station0,
         torch.device("cuda", 0), smi)
     tools_launches, tools_shapes = phase_tools(torch, smi)
     # K1/K2 at every shape the engine, the streamer and the sharded

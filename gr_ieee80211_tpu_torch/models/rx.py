@@ -250,8 +250,7 @@ def _mu_sigb_core(stream: CF, ltf_idx: torch.Tensor, cfo: torch.Tensor,
 
 def _payload_core_mu(cfg: PhyConfig, stream: CF, ltf_idx: torch.Tensor,
                      cfo: torch.Tensor, n_total: int, own: int,
-                     nrx: int = 1, mpdu_len: int = 0,
-                     record: list | None = None) -> dict:
+                     nrx: int = 1, mpdu_len: int = 0) -> dict:
     """MU-STA payload decode: like :func:`_payload_core`, but the channel
     estimate covers all n_total space-time streams and only the user's own
     column(s) equalize the data (cfg describes the user's own modulation,
@@ -270,7 +269,7 @@ def _payload_core_mu(cfg: PhyConfig, stream: CF, ltf_idx: torch.Tensor,
                                 for r in range(nrx)], dim=1))
     llr = OF.equalize_and_demap(grids, h, pilot_h, cfg)
     coded = OF.deinterleave_deparse(llr, cfg)
-    bits = adaptive_decode(coded, cfg.cr, cfg.n_trellis, record=record)
+    bits = adaptive_decode(coded, cfg.cr, cfg.n_trellis)
     data = OF.descramble_bits(bits)
     psdu_bits = data[:, 16: 16 + 8 * cfg.psdu_len]
     out = {"psdu": OF.bits_to_bytes_batch(psdu_bits), "service": data[:, :16]}
@@ -384,8 +383,7 @@ def _dd_gate(xs: CF, cfg: PhyConfig) -> bool:
 def _payload_core(cfg: PhyConfig, stream: CF, ltf_idx: torch.Tensor,
                   cfo: torch.Tensor, nrx: int = 1, mpdu_len: int = 0,
                   n_real: torch.Tensor | None = None,
-                  want_sssnr: bool = False,
-                  record: list | None = None) -> dict:
+                  want_sssnr: bool = False) -> dict:
     """Payload demod + decode for one config bucket, with the reference's
     channel refinements (SISO and the gated dd pass, 1 stream only).
 
@@ -393,8 +391,7 @@ def _payload_core(cfg: PhyConfig, stream: CF, ltf_idx: torch.Tensor,
     uint8, ``service`` (B, 16), ``sssnr0`` (B,) with ``want_sssnr`` for
     VHT 1 SS, and ``mpdu_fcs_ok`` (VHT single-MPDU A-MPDU) or ``fcs_ok``
     (non-aggregated L/HT).  ``n_real``: per-row true trellis length of a
-    canonicalized bucket.  ``record`` collects the decode tier and
-    whether the dd pass ran (``"dd"``)."""
+    canonicalized bucket.  A dd pass that runs counts ``rx.payload.dd``."""
     data_start = _data_start(cfg)
     n_need = data_start + 80 * cfg.nsym + 16
     with trace.span("rx.payload.derotate"):
@@ -413,16 +410,14 @@ def _payload_core(cfg: PhyConfig, stream: CF, ltf_idx: torch.Tensor,
         with trace.span("rx.payload.dd_gate"):
             dd = _dd_gate(xs, cfg)
         if dd:
+            trace.count("rx.payload.dd")
             with trace.span("rx.payload.dd"):
                 h, pilot_h = OF.refine_chanest_data(grids, h, pilot_h, cfg)
-            if record is not None:
-                record.append("dd")
     with trace.span("rx.payload.demap"):
         llr = OF.equalize_and_demap(grids, h, pilot_h, cfg)
         coded = OF.deinterleave_deparse(llr, cfg)    # (B, nsym*ncbps)
     with trace.span("rx.payload.decode"):
-        bits = adaptive_decode(coded, cfg.cr, cfg.n_trellis, n_real=n_real,
-                               record=record)
+        bits = adaptive_decode(coded, cfg.cr, cfg.n_trellis, n_real=n_real)
     with trace.span("rx.payload.bytes"):
         data = OF.descramble_bits(bits)
         psdu_bits = data[:, 16: 16 + 8 * cfg.psdu_len]
@@ -479,14 +474,14 @@ def _detect_sync(cfg: PhyConfig, stream: CF, max_pkts: int, nrx: int = 1,
 
 def rx_chain_count(cfg: PhyConfig, stream: CF, nrx: int = 1,
                    mpdu_len: int = 0, max_pkts: int = 4096,
-                   chunk: int | None = None, record: list | None = None):
+                   chunk: int | None = None):
     """Known-config chain: detect -> dedup -> sync -> decode -> count.
 
     stream: CF of (>= nrx, N) float32 (or bfloat16) tensors on the device
     the chain runs on.  Returns (n_fcs_ok, n_detected) as 0-dim int32
     tensors.  ``chunk`` decodes the max_pkts synced rows in chunks of
     this size (max_pkts % chunk == 0), bounding the decoder's
-    temporaries; ``record`` collects each chunk's decode tier."""
+    temporaries."""
     _, ltf_idx, cfo, valid = _detect_sync(cfg, stream, max_pkts, nrx)
     if chunk is None or max_pkts <= chunk:
         chunk = max_pkts
@@ -497,24 +492,23 @@ def rx_chain_count(cfg: PhyConfig, stream: CF, nrx: int = 1,
     for s in range(0, max_pkts, chunk):
         sl = slice(s, s + chunk)
         out = _payload_core(cfg, stream, ltf_idx[sl], cfo[sl], nrx=nrx,
-                            mpdu_len=mpdu_len, record=record)
+                            mpdu_len=mpdu_len)
         n_ok = n_ok + (_ok_flags(out) & valid[sl]).sum().to(torch.int32)
     return n_ok, valid.sum().to(torch.int32)
 
 
 def rx_chain_ok(cfg: PhyConfig, stream: CF, nrx: int = 1, mpdu_len: int = 0,
-                max_pkts: int = 4096, record: list | None = None):
+                max_pkts: int = 4096):
     """Like :func:`rx_chain_count` but per packet: returns (ok (max_pkts,)
     bool, ltf_idx (max_pkts,) int32, valid (max_pkts,) bool)."""
     ltf_idx, ltf_idx_c, cfo, valid = _detect_sync(cfg, stream, max_pkts, nrx)
     out = _payload_core(cfg, stream, ltf_idx_c, cfo, nrx=nrx,
-                        mpdu_len=mpdu_len, record=record)
+                        mpdu_len=mpdu_len)
     return _ok_flags(out) & valid, ltf_idx.to(torch.int32), valid
 
 
 def rx_chain_ok_mu(cfg: PhyConfig, stream: CF, n_total: int, own: int,
-                   nrx: int = 1, mpdu_len: int = 0, max_pkts: int = 4096,
-                   record: list | None = None):
+                   nrx: int = 1, mpdu_len: int = 0, max_pkts: int = 4096):
     """Per-packet MU-STA chain: detect -> sync -> SIG-B -> payload.
 
     The MU twin of :func:`rx_chain_ok` (the station knows its group's
@@ -531,20 +525,18 @@ def rx_chain_ok_mu(cfg: PhyConfig, stream: CF, n_total: int, own: int,
         pw = torch.tensor([1, 2, 4, 8], device=sigb_bits.device)
     sigb_mcs = (sigb_bits[:, 16:20].to(torch.int64) * pw).sum(dim=1)
     out = _payload_core_mu(cfg, stream, ltf_idx_c, cfo, n_total, own,
-                           nrx=nrx, mpdu_len=mpdu_len, record=record)
+                           nrx=nrx, mpdu_len=mpdu_len)
     ok = (_ok_flags(out) & _sigb_crc_ok(sigb_bits, out["service"])
           & (sigb_mcs == cfg.mcs) & valid)
     return ok, ltf_idx.to(torch.int32), valid
 
 
 def rx_chain_count_mu(cfg: PhyConfig, stream: CF, n_total: int, own: int,
-                      nrx: int = 1, mpdu_len: int = 0, max_pkts: int = 4096,
-                      record: list | None = None):
+                      nrx: int = 1, mpdu_len: int = 0, max_pkts: int = 4096):
     """:func:`rx_chain_ok_mu` counted: (n_fcs_ok, n_detected) as 0-dim
     int32 tensors, the MU twin of :func:`rx_chain_count`."""
     ok, _, valid = rx_chain_ok_mu(cfg, stream, n_total, own, nrx=nrx,
-                                  mpdu_len=mpdu_len, max_pkts=max_pkts,
-                                  record=record)
+                                  mpdu_len=mpdu_len, max_pkts=max_pkts)
     return ok.sum().to(torch.int32), valid.sum().to(torch.int32)
 
 
@@ -653,8 +645,8 @@ class RxEngine:
     int8, a quarter)."""
 
     def __init__(self, nrx: int = 1, mu_pos: int | None = None,
-                 mu_gid: int | None = None, ingest_bf16: bool = False,
-                 ingest: str | None = None, speculate: bool = True,
+                 mu_gid: int | None = None, ingest: str = "f32",
+                 speculate: bool = True,
                  device: str | torch.device = "cuda"):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -665,7 +657,7 @@ class RxEngine:
         #: stream; ``mu_gid`` keeps only PPDUs of that group id
         self.mu_pos = mu_pos
         self.mu_gid = mu_gid
-        self.ingest = ingest or ("bf16" if ingest_bf16 else "f32")
+        self.ingest = ingest
         if self.ingest not in _INGEST:
             raise ValueError(f"ingest must be one of {sorted(_INGEST)}")
         #: one-pass speculation: when the previous block's data traffic
@@ -732,7 +724,7 @@ class RxEngine:
                                   n_real=nr)
             return (dev, n_stream, ("spec", spec) + outs)
         with trace.span("rx.front"):
-            meta_d, bits_d = self._front_dispatch(dev, n_stream)
+            meta_d, bits_d = _front_core(dev[0], self._max_pkts(n_stream))
         return (dev, n_stream, ("front", meta_d, bits_d))
 
     def finish_process(self, handle) -> list[RxResult]:
@@ -749,9 +741,6 @@ class RxEngine:
                                     spec=(spec, psdu, sssnr))
             return self._finish(dev, n_stream, rest[1], rest[2])
 
-    def _front_dispatch(self, dev: CF, n_stream: int):
-        return _front_core(dev[0], self._max_pkts(n_stream))
-
     def process_device(self, dev: CF, n_stream: int) -> list[RxResult]:
         """Run the full engine on an already device-resident (nrx, N) CF
         stream."""
@@ -760,7 +749,7 @@ class RxEngine:
 
     def _process(self, dev: CF, n_stream: int) -> list[RxResult]:
         with trace.span("rx.front"):
-            meta_d, bits_d = self._front_dispatch(dev, n_stream)
+            meta_d, bits_d = _front_core(dev[0], self._max_pkts(n_stream))
         return self._finish(dev, n_stream, meta_d, bits_d)
 
     def _finish(self, dev: CF, n_stream: int, meta_d, bits_d,
@@ -1042,14 +1031,3 @@ class RxEngine:
                            self._rows(np.array([cfo], np.float32)), nsts,
                            self.nrx)
         return _to_numpy_c(h)[0]
-
-    # -- known-config fast path --------------------------------------------
-    def decode_aligned(self, cfg: PhyConfig, stream: np.ndarray,
-                       ltf_idx: np.ndarray, cfo: np.ndarray,
-                       mpdu_len: int = 0) -> dict:
-        """Decode a batch of same-config packets at known sync positions."""
-        with trace.sync("upload", 2):
-            dev = from_numpy_cf(np.atleast_2d(stream), self.device)
-        return _payload_core(cfg, dev, self._rows(np.asarray(ltf_idx)),
-                             self._rows(np.asarray(cfo, np.float32)),
-                             nrx=self.nrx, mpdu_len=mpdu_len)

@@ -12,8 +12,9 @@ The wrappers that launch the kernels (``ops/viterbi_kernels.py``,
 ``ops/viterbi.scan_viterbi``, ``ops/frontend.derotate``,
 ``ops/ofdm.payload_chanest``) share the helpers here: the CPU-tensor /
 CUDA-tensor split (:func:`on_cuda`), the alignment of vector-loaded
-operands (:func:`aligned`) and the launch counters (:func:`counted`,
-:func:`reset_launch_counts`).
+operands (:func:`aligned`) and the launch itself (:func:`launch`), which
+counts every accepted launch in the ``utils/trace`` registry as
+``kernel.<wrapper>.launches`` and ``kernel.<wrapper>.at.<shape>``.
 """
 from __future__ import annotations
 
@@ -25,6 +26,8 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+
+from ..utils import trace
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -132,41 +135,23 @@ def aligned(t, nbytes: int):
     return t if t.data_ptr() % nbytes == 0 else t.clone()
 
 
-def launch(name: str, device, *args):
+def wrapper_name(entry_point: str) -> str:
+    """The counter name of an entry point: its wrapper's name."""
+    return entry_point.removeprefix("gr80211_")
+
+
+def launch(name: str, device, *args, shape: tuple):
     """Call the C entry point ``name`` on ``device``'s current stream
-    (pointers and ints in ``args``) and raise if the launch was refused."""
+    (pointers and ints in ``args``) and raise if the launch was refused.
+    An accepted launch counts ``kernel.<wrapper>.launches`` and
+    ``kernel.<wrapper>.at.<d0>x<d1>...``, ``shape`` being the problem
+    shape the wrapper launched at."""
     import torch
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = getattr(lib(), name)(*args, stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
-
-
-#: every wrapper that launches a kernel, in registration order
-_COUNTED: list = []
-
-
-def counted(fn):
-    """Give a kernel wrapper a ``launches`` counter and a ``shapes`` set of
-    the problem shapes it launched at (both updated by the wrapper where
-    it launches its kernel, and nowhere else)."""
-    fn.launches = 0
-    fn.shapes = set()
-    _COUNTED.append(fn)
-    return fn
-
-
-def reset_launch_counts():
-    for fn in _COUNTED:
-        fn.launches = 0
-        fn.shapes = set()
-
-
-def launch_counts() -> dict[str, int]:
-    return {fn.__name__: fn.launches for fn in _COUNTED}
-
-
-def launch_shapes() -> dict[str, set]:
-    """Each wrapper's launch shapes since the last reset."""
-    return {fn.__name__: set(fn.shapes) for fn in _COUNTED}
+    key = "kernel." + wrapper_name(name)
+    trace.count(key + ".launches")
+    trace.count(key + ".at." + "x".join(map(str, shape)))

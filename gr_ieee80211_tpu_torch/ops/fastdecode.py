@@ -13,9 +13,8 @@ through the same tier ladder as the reference:
 
 The reference's ``lax.cond`` ladder becomes Python branches on counts
 read back with ``.item()``; its one-hot matmul and rank-cumsum merges
-become direct index scatters.  ``adaptive_decode(record=...)`` appends
-the name of the tier that ran, so callers can show which path a batch
-took.
+become direct index scatters.  The tier that ran counts as
+``decode.tier.<name>`` in ``utils/trace``.
 """
 from __future__ import annotations
 
@@ -271,8 +270,7 @@ def _full(coded_llr: torch.Tensor, cr: str, n_trellis: int) -> torch.Tensor:
 def adaptive_decode(coded_llr: torch.Tensor, cr: str, n_trellis: int,
                     fallback: int = FALLBACK_B,
                     n_real: torch.Tensor | None = None,
-                    win_tiers: tuple = WIN_TIERS,
-                    record: list | None = None) -> torch.Tensor:
+                    win_tiers: tuple = WIN_TIERS) -> torch.Tensor:
     """Depuncture + decode with the syndrome-gated fast path.
 
     coded_llr: (B, >=n_kept) punctured LLRs (positive = coded bit 1).
@@ -280,8 +278,7 @@ def adaptive_decode(coded_llr: torch.Tensor, cr: str, n_trellis: int,
     (rounded-up) bucket: the syndrome and the fast path then cover only
     each row's real region.
     Returns (B, n_trellis) uint8, equal to the reference's bits on every
-    tier.
-    ``record``: a list the name of the tier that ran is appended to."""
+    tier."""
     B = coded_llr.shape[0]
     d8, syn = inverse_and_syndrome(coded_llr, cr, n_trellis, n_real)
     need = syn > 0
@@ -292,8 +289,6 @@ def adaptive_decode(coded_llr: torch.Tensor, cr: str, n_trellis: int,
 
     def done(name, out):
         trace.count("decode.tier." + name)
-        if record is not None:
-            record.append(name)
         return out
 
     if n_fail == 0:

@@ -22,7 +22,7 @@ import torch.nn.functional as F
 
 from ..utils import trace
 from .cplx import CF, expj
-from .cuda_lib import counted, launch, on_cuda, require
+from .cuda_lib import launch, on_cuda, require
 
 FS = 20e6
 
@@ -378,7 +378,6 @@ def derotate_ref(wins: CF, cfo: torch.Tensor, n: int) -> CF:
     return CF(wins.re * c - wins.im * s, wins.re * s + wins.im * c)
 
 
-@counted
 def derotate(wins: CF, cfo: torch.Tensor, n: int) -> CF:
     """wins (B, n) * exp(-j 2pi cfo t / FS) in one pass (K3, the port of
     ``derotate_pallas``).  CPU tensors take :func:`derotate_ref`; CUDA
@@ -397,9 +396,7 @@ def derotate(wins: CF, cfo: torch.Tensor, n: int) -> CF:
         return CF(out_re, out_im)
     launch("gr80211_derotate", re.device, re.data_ptr(), im.data_ptr(),
            cfo.data_ptr(), out_re.data_ptr(), out_im.data_ptr(), n, B,
-           W_SCALE)
-    derotate.launches += 1
-    derotate.shapes.add((B, n))
+           W_SCALE, shape=(B, n))
     return CF(out_re, out_im)
 
 

@@ -18,7 +18,7 @@ from ..spec import tables as T
 from ..spec.params import Fmt, PhyConfig
 from ..utils import trace
 from .cplx import CF, _dft64_mats, cstack, csum, dft64
-from .cuda_lib import counted, launch, on_cuda, require
+from .cuda_lib import launch, on_cuda, require
 
 
 def _t(a: np.ndarray, device) -> torch.Tensor:
@@ -297,7 +297,6 @@ def _chanest_table(device: torch.device) -> torch.Tensor:
         return torch.from_numpy(tab).to(device)
 
 
-@counted
 def payload_chanest(xs: CF, fmt: Fmt, nltf: int, nss: int,
                     sigb_gi: int | None = None) -> tuple[CF, CF]:
     """The payload's channel estimate of a bucket in one launch of K7
@@ -350,15 +349,8 @@ def _chanest_kernel(xs: CF, fmt: Fmt, nltf: int, nss: int,
            xs.im.data_ptr(), _chanest_table(dev).data_ptr(), h.re.data_ptr(),
            h.im.data_ptr(), pilot_h.re.data_ptr(), pilot_h.im.data_ptr(), n,
            B, nrx, int(fmt), 0 if legacy else nltf, nss, int(refine), sigb,
-           _L_TO_NL_GAIN, _REFINE_COH)
-    _K7.launches += 1
-    _K7.shapes.add((B, nrx, int(fmt), nss))
+           _L_TO_NL_GAIN, _REFINE_COH, shape=(B, nrx, int(fmt), nss))
     return h, pilot_h
-
-
-#: the counted wrapper, kept apart from the module attribute, which tools
-#: that time or capture the stage replace while the kernel runs under them
-_K7 = payload_chanest
 
 
 @functools.lru_cache(maxsize=None)

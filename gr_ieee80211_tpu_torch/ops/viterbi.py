@@ -23,7 +23,7 @@ import torch
 
 from ..spec import tables as T
 from ..utils import trace
-from .cuda_lib import aligned, counted, launch, on_cuda, require
+from .cuda_lib import aligned, launch, on_cuda, require
 
 NEG = -1e9
 #: trellis steps per renormalization (the reference's scan chunk)
@@ -55,7 +55,6 @@ def viterbi_decode(llr_pairs: torch.Tensor,
     return scan_viterbi(llr_pairs.to(torch.float32), traceback_from_zero)
 
 
-@counted
 def scan_viterbi(llr: torch.Tensor,
                  traceback_from_zero: bool = True) -> torch.Tensor:
     """The decode of :func:`viterbi_decode` in one launch of K6.
@@ -79,9 +78,7 @@ def scan_viterbi(llr: torch.Tensor,
     llr = aligned(llr, 8)
     launch("gr80211_scan_viterbi", dev, llr.data_ptr(), bits.data_ptr(),
            None if scratch is None else scratch.data_ptr(), n_steps, B,
-           int(traceback_from_zero))
-    scan_viterbi.launches += 1
-    scan_viterbi.shapes.add((B, n_steps))
+           int(traceback_from_zero), shape=(B, n_steps))
     return bits
 
 

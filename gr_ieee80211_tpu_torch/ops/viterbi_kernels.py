@@ -51,9 +51,8 @@ import functools
 import numpy as np
 import torch
 
-from .cuda_lib import aligned as _aligned, counted, launch
+from .cuda_lib import aligned as _aligned, launch
 from .cuda_lib import on_cuda as _on_cuda, require as _require
-from .cuda_lib import reset_launch_counts  # noqa: F401  (re-exported)
 
 NEG = -1e9
 T_CHUNK = 64
@@ -163,7 +162,6 @@ def acs_sweep_ref(llr: torch.Tensor, pm0: torch.Tensor):
     return words_from_planes(dec_lo, dec_hi), p.T.contiguous()
 
 
-@counted
 def acs_sweep(llr: torch.Tensor, pm0: torch.Tensor | None = None):
     """Forward ACS over the whole trellis (K1).
 
@@ -190,9 +188,7 @@ def acs_sweep(llr: torch.Tensor, pm0: torch.Tensor | None = None):
     dec = torch.empty((B, n_steps, 2), dtype=torch.int32, device=dev)
     pm = torch.empty((B, 64), dtype=torch.float32, device=dev)
     launch("gr80211_acs_sweep", dev, llr.data_ptr(), pm0.data_ptr(),
-           dec.data_ptr(), pm.data_ptr(), n_steps, B)
-    acs_sweep.launches += 1
-    acs_sweep.shapes.add((B, n_steps))
+           dec.data_ptr(), pm.data_ptr(), n_steps, B, shape=(B, n_steps))
     return dec, pm
 
 
@@ -215,7 +211,6 @@ def traceback_ref(dec: torch.Tensor, start: torch.Tensor) -> torch.Tensor:
     return bits
 
 
-@counted
 def traceback_sweep(dec: torch.Tensor,
                     start: torch.Tensor | None = None) -> torch.Tensor:
     """(B, T, 2) int32 decision words -> (B, T) uint8 bits (K2).
@@ -240,9 +235,7 @@ def traceback_sweep(dec: torch.Tensor,
         return bits
     dec, start = _aligned(dec, 8), start.contiguous()
     launch("gr80211_traceback_sweep", dev, dec.data_ptr(), start.data_ptr(),
-           bits.data_ptr(), n_steps, B)
-    traceback_sweep.launches += 1
-    traceback_sweep.shapes.add((B, n_steps))
+           bits.data_ptr(), n_steps, B, shape=(B, n_steps))
     return bits
 
 
@@ -275,7 +268,6 @@ def acs_sweep_packed_ref(llr0: torch.Tensor, llr1: torch.Tensor,
             pack_planes(dec_hi.to(torch.uint8)), pm)
 
 
-@counted
 def acs_sweep_packed(llr0: torch.Tensor, llr1: torch.Tensor,
                      pm0: torch.Tensor | None = None):
     """Forward ACS with packed decision planes (K4).
@@ -304,9 +296,7 @@ def acs_sweep_packed(llr0: torch.Tensor, llr1: torch.Tensor,
         return dec_lo, dec_hi, pm0.clone()
     launch("gr80211_acs_sweep_packed", dev, llr0.data_ptr(), llr1.data_ptr(),
            pm0.data_ptr(), dec_lo.data_ptr(), dec_hi.data_ptr(),
-           pm.data_ptr(), n_steps, B)
-    acs_sweep_packed.launches += 1
-    acs_sweep_packed.shapes.add((B, n_steps))
+           pm.data_ptr(), n_steps, B, shape=(B, n_steps))
     return dec_lo, dec_hi, pm
 
 
@@ -317,7 +307,6 @@ def traceback_packed_ref(dec_lo: torch.Tensor, dec_hi: torch.Tensor,
     return traceback_ref(dec, start).T.contiguous()
 
 
-@counted
 def traceback_sweep_packed(dec_lo: torch.Tensor, dec_hi: torch.Tensor,
                            start: torch.Tensor | None = None) -> torch.Tensor:
     """(T/4, 32, B) packed planes -> (T, B) uint8 bits (K5); the
@@ -342,9 +331,8 @@ def traceback_sweep_packed(dec_lo: torch.Tensor, dec_hi: torch.Tensor,
     if B == 0 or n_steps == 0:
         return bits
     launch("gr80211_traceback_sweep_packed", dev, dec_lo.data_ptr(),
-           dec_hi.data_ptr(), start.data_ptr(), bits.data_ptr(), n_steps, B)
-    traceback_sweep_packed.launches += 1
-    traceback_sweep_packed.shapes.add((B, n_steps))
+           dec_hi.data_ptr(), start.data_ptr(), bits.data_ptr(), n_steps, B,
+           shape=(B, n_steps))
     return bits
 
 

@@ -2,10 +2,9 @@
 
 **Counters** are one process-wide registry of named numbers, always on:
 ``count(name, n)`` adds to one, ``snapshot()`` returns a copy,
-``reset()`` zeroes them all.  The kernel wrappers' own launch
-counters (``ops.cuda_lib.counted``) appear in ``snapshot()`` as
-``kernel.<wrapper>.launches``, read from the wrappers, which
-``ops.cuda_lib.reset_launch_counts()`` zeroes.
+``reset()`` zeroes them all.  Every fact the port counts about itself
+is one of them, counted where it happens; a reader takes the difference
+of two snapshots around what it measures and never resets.
 
 **Spans** are recorded only between ``enable()`` and ``disable()``.  Off,
 ``span(name)`` costs one flag test and returns a shared no-op context.
@@ -29,7 +28,9 @@ there.  The count is kept whatever the device: on the CPU it counts the
 places where a card would make the host wait.
 
 Names are dotted: ``rx.*`` (the engine), ``decode.*`` (the decode
-ladder) and ``sync.*``.
+ladder), ``sync.*`` and ``kernel.*`` (``ops.cuda_lib.launch``: each
+accepted launch as ``kernel.<wrapper>.launches`` and
+``kernel.<wrapper>.at.<shape>``).
 """
 from __future__ import annotations
 
@@ -75,13 +76,9 @@ def count(name: str, n: float = 1):
 
 
 def snapshot() -> dict[str, float]:
-    """A copy of every counter, the wrappers' kernel launches included."""
-    from ..ops import cuda_lib
+    """A copy of every counter."""
     with _lock:
-        out = dict(_counts)
-    for name, n in cuda_lib.launch_counts().items():
-        out[f"kernel.{name}.launches"] = n
-    return out
+        return dict(_counts)
 
 
 def reset():

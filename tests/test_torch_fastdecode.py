@@ -10,6 +10,7 @@ import torch
 from gr_ieee80211_tpu.gold import bits as GB
 from gr_ieee80211_tpu.ops import fastdecode as JFD
 from gr_ieee80211_tpu_torch.ops import fastdecode as PFD
+from tools_torch import timing
 
 torch.set_num_threads(2)
 
@@ -32,16 +33,17 @@ def _llr_batch(rng, cr, T, B, flips_per_row=None):
 
 
 def _both(llr, cr, T, n_real=None, **kw):
-    """(JAX bits, port bits, port tier record) for the same LLRs."""
+    """(JAX bits, port bits, the port's decode tiers counted) for the same
+    LLRs."""
     ref = np.asarray(JFD.adaptive_decode(
         jnp.asarray(llr), cr, T,
         n_real=None if n_real is None else jnp.asarray(n_real), **kw))
-    rec = []
-    got = PFD.adaptive_decode(
-        torch.from_numpy(llr), cr, T, record=rec,
-        n_real=None if n_real is None else torch.from_numpy(n_real), **kw)
+    got, moved = timing.with_counters(lambda: PFD.adaptive_decode(
+        torch.from_numpy(llr), cr, T,
+        n_real=None if n_real is None else torch.from_numpy(n_real), **kw),
+        torch.device("cpu"))
     assert got.dtype == torch.uint8
-    return ref, got.numpy(), rec
+    return ref, got.numpy(), timing.decode_path(moved)
 
 
 @pytest.mark.parametrize("cr", RATES)

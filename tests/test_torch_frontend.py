@@ -26,6 +26,7 @@ from gr_ieee80211_tpu.spec.params import Fmt, PhyConfig
 from gr_ieee80211_tpu_torch.models import rx as PRX
 from gr_ieee80211_tpu_torch.ops import frontend as PFE
 from gr_ieee80211_tpu_torch.ops.cplx import CF as PCF, from_numpy_cf
+from gr_ieee80211_tpu_torch.utils import trace
 
 torch.set_num_threads(2)
 
@@ -270,9 +271,10 @@ def test_derotate_twin_matches_pallas(B, n):
     ref = JFE.derotate_pallas(JCF(jnp.asarray(x.real, jnp.float32),
                                   jnp.asarray(x.imag, jnp.float32)),
                               jnp.asarray(cfo), n)
-    PFE.derotate.launches = 0
+    before = trace.snapshot()
     got = PFE.derotate(from_numpy_cf(x, "cpu"), torch.from_numpy(cfo), n)
-    assert PFE.derotate.launches == 0
+    assert not {k for k, v in trace.snapshot().items()
+                if k.startswith("kernel.") and v != before.get(k, 0)}
     for a, b in ((ref.re, got.re), (ref.im, got.im)):
         assert np.abs(np.asarray(a) - b.numpy()).max() < 2e-4
     fac = PFE._derotate_factored(from_numpy_cf(x, "cpu"),

@@ -45,7 +45,7 @@ def test_port_has_the_expected_modules():
                  "runtime.udp_phy", "runtime.streaming", "utils.io",
                  "parallel.mesh", "parallel.distributed", "entry"):
         assert f"{PORT}.{want}" in mods
-    for tool in ("viterbi_designs", "rx_daemon", "tx_daemon", "cmu_demo",
+    for tool in ("trace_check", "rx_daemon", "tx_daemon", "cmu_demo",
                  "mac_example_rx", "mac_example_tx", "pkt_gen_example",
                  "pkt_gen_ow_example", "pkt_proc_example", "cmu_offline",
                  "draw_bin", "mesh_worker", "timing", "bench",
@@ -103,3 +103,22 @@ def test_no_forbidden_import_in_source(path):
                     if isinstance(a, ast.Constant) and isinstance(a.value,
                                                                   str):
                         assert not _forbidden(a.value), (path, node.lineno)
+
+
+@pytest.mark.parametrize("path", sorted((ROOT / PORT / "utils").glob("*.py")),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_utils_import_no_higher_layer(path):
+    """The lowest layer imports nothing of the port's ``ops`` or
+    ``models``: the layers above count into it, it reads none of them."""
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.ImportFrom):
+            mod = "." * node.level + (node.module or "")
+            names = [mod] + [f"{mod}.{a.name}" for a in node.names]
+        elif isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        else:
+            continue
+        for name in names:
+            parts = name.lstrip(".").split(".")
+            assert not {"ops", "models"} & set(parts[:2]), (path,
+                                                            node.lineno, name)

@@ -27,6 +27,7 @@ from gr_ieee80211_tpu_torch.ops.cplx import from_numpy_cf
 from gr_ieee80211_tpu_torch.spec import params as PP
 from gr_ieee80211_tpu_torch.spec import tables as PT
 from gr_ieee80211_tpu_torch.spec.params import from_reference
+from tools_torch import timing
 from test_torch_engine import (EXACT, assert_same_results, assert_same_starts,
                                ltf_metric_as_measured)
 
@@ -132,11 +133,11 @@ def test_payload_core_mu_equal(user, snr_db):
     ml = len(mpdus[user])
     ref = JRX._payload_core_mu(cfg, from_host(stream[None]), np.asarray(ltf),
                                np.asarray(cfo), 2, user, nrx=1, mpdu_len=ml)
-    rec = []
-    got = PRX._payload_core_mu(
+    got, moved = timing.with_counters(lambda: PRX._payload_core_mu(
         from_reference(cfg), from_numpy_cf(stream[None], "cpu"),
         torch.from_numpy(ltf), torch.from_numpy(cfo), 2, user, nrx=1,
-        mpdu_len=ml, record=rec)
+        mpdu_len=ml), torch.device("cpu"))
+    rec = timing.decode_path(moved)
     assert sorted(got) == sorted(ref) == ["mpdu_fcs_ok", "psdu", "service"]
     for k in got:
         assert np.array_equal(np.asarray(ref[k]), got[k].numpy()), k

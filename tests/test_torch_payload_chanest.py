@@ -24,6 +24,7 @@ from gr_ieee80211_tpu_torch.ops import ofdm as OF
 from gr_ieee80211_tpu_torch.ops.cplx import CF, csum, cstack, from_numpy_cf
 from gr_ieee80211_tpu_torch.spec import tables as T
 from gr_ieee80211_tpu_torch.spec.params import Fmt
+from gr_ieee80211_tpu_torch.utils import trace
 
 torch.set_num_threads(2)
 
@@ -59,13 +60,20 @@ def _equal(a: CF, b: CF) -> bool:
     return torch.equal(a.re, b.re) and torch.equal(a.im, b.im)
 
 
+def _kernel_counts(before: dict) -> dict:
+    """The ``kernel.*`` counters that moved since ``before``."""
+    after = trace.snapshot()
+    return {k: v for k, v in after.items()
+            if k.startswith("kernel.") and v != before.get(k, 0)}
+
+
 @pytest.mark.parametrize("case", CASES, ids=lambda c: f"{c[0].name}{c[2]}"
                          f"{'sigb' if c[3] else ''}")
 @pytest.mark.parametrize("nrx", [1, 2])
 def test_payload_chanest_runs_the_twin_on_cpu(case, nrx):
     """CPU tensors take the twin, which is the stage as it was, and count
     no launch."""
-    PCL.reset_launch_counts()
+    before = trace.snapshot()
     cfg, xs, sigb_gi = _inputs(case, nrx, 3, 20.0, 7 + nrx)
     h, pilot_h = OF.payload_chanest(xs, cfg.fmt, cfg.nltf, cfg.nss, sigb_gi)
     assert h.re.shape == (3, nrx, cfg.nss, 64)
@@ -76,8 +84,7 @@ def test_payload_chanest_runs_the_twin_on_cpu(case, nrx):
         assert _equal(a, b)
     for a, b in zip((h, pilot_h), old):
         assert _equal(a, b)
-    assert OF.payload_chanest.launches == 0
-    assert PCL.launch_counts()["payload_chanest"] == 0
+    assert not _kernel_counts(before)
 
 
 def _bad_inputs():
@@ -98,10 +105,10 @@ def _bad_inputs():
 def test_payload_chanest_checks_inputs(bad):
     """The wrapper refuses what K7 cannot take, on any device; no launch
     is counted."""
-    PCL.reset_launch_counts()
+    before = trace.snapshot()
     with pytest.raises(ValueError):
         OF.payload_chanest(*bad[0])
-    assert OF.payload_chanest.launches == 0
+    assert not _kernel_counts(before)
 
 
 def _cu() -> str:
@@ -171,12 +178,17 @@ def k7_on_cpu(tmp_path_factory):
 
 
 def _run_on_cpu(fn, monkeypatch, xs, cfg, sigb_gi, refine):
-    def launch(name, dev, *args):
+    """K7 through the wrapper on the CPU build: (outputs, the shape of each
+    launch)."""
+    shapes = []
+
+    def launch(name, dev, *args, shape):
         assert name == "gr80211_payload_chanest"
         assert fn(*args, None) == 0
+        shapes.append(shape)
     monkeypatch.setattr(OF, "launch", launch)
     return OF._chanest_kernel(xs, cfg.fmt, cfg.nltf, cfg.nss, sigb_gi,
-                              refine)
+                              refine), shapes
 
 
 @pytest.mark.parametrize("case", CASES, ids=lambda c: f"{c[0].name}{c[2]}"
@@ -189,9 +201,10 @@ def test_k7_source_matches_the_twin_on_cpu(k7_on_cpu, monkeypatch, case, nrx,
     refinement); the refined ones within 1e-5 of the row's largest |h|."""
     cfg, xs, sigb_gi = _inputs(case, nrx, 2, snr, 100 + nrx)
     refine = cfg.fmt != Fmt.L and cfg.nss == 1
-    PCL.reset_launch_counts()
-    got = _run_on_cpu(k7_on_cpu, monkeypatch, xs, cfg, sigb_gi, refine)
-    assert OF.payload_chanest.launches == 1     # one launch a bucket
+    got, shapes = _run_on_cpu(k7_on_cpu, monkeypatch, xs, cfg, sigb_gi,
+                              refine)
+    # one launch a bucket, at the bucket's shape
+    assert shapes == [(2, nrx, int(cfg.fmt), cfg.nss)]
     ref = OF.payload_chanest_ref(xs, cfg.fmt, cfg.nltf, cfg.nss, sigb_gi)
     if not refine:
         assert _equal(got[0], ref[0]) and _equal(got[1], ref[1])
@@ -203,5 +216,6 @@ def test_k7_source_matches_the_twin_on_cpu(k7_on_cpu, monkeypatch, case, nrx,
     h0, p0 = OF.nl_chanest(xs, OF.NL_LTF_START, cfg.nltf, 1)
     if cfg.fmt == Fmt.HT:
         p0 = csum(CF(h0.re[..., T.PILOT_IDX], h0.im[..., T.PILOT_IDX]), dim=2)
-    h1, p1 = _run_on_cpu(k7_on_cpu, monkeypatch, xs, cfg, sigb_gi, False)
+    (h1, p1), _ = _run_on_cpu(k7_on_cpu, monkeypatch, xs, cfg, sigb_gi,
+                              False)
     assert _equal(h1, h0) and _equal(p1, p0)

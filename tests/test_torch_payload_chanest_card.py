@@ -22,10 +22,10 @@ import pytest
 import torch
 
 import _chanest_windows as W
-from gr_ieee80211_tpu_torch.ops import cuda_lib as PCL
 from gr_ieee80211_tpu_torch.ops import ofdm as OF
 from gr_ieee80211_tpu_torch.ops.cplx import CF, csum, from_numpy_cf
 from gr_ieee80211_tpu_torch.spec.params import Fmt
+from gr_ieee80211_tpu_torch.utils import trace
 
 pytestmark = pytest.mark.gpu
 
@@ -40,6 +40,11 @@ def _card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     return torch.device("cuda", 0)
+
+
+def _launches(wrapper: str) -> float:
+    """``kernel.<wrapper>.launches`` in the program's counter registry."""
+    return trace.snapshot().get(f"kernel.{wrapper}.launches", 0)
 
 
 def _equal(a: CF, b: CF) -> bool:
@@ -70,9 +75,9 @@ def test_k7_matches_twin(case, nrx, snr):
     worst = 0.0
     for B in BATCHES:
         xs = CF(xs_all.re[:B], xs_all.im[:B])
-        before = OF.payload_chanest.launches
+        before = _launches("payload_chanest")
         got = OF.payload_chanest(xs, fmt, cfg.nltf, nss, sigb_gi)
-        assert OF.payload_chanest.launches == before + 1
+        assert _launches("payload_chanest") == before + 1
         ref = OF.payload_chanest_ref(xs, fmt, cfg.nltf, nss, sigb_gi)
         torch.cuda.synchronize()
         assert got[0].re.shape == ref[0].re.shape == (B, nrx, nss, 64)
@@ -98,24 +103,30 @@ def test_k7_matches_twin(case, nrx, snr):
 
 
 def test_k7_empty_batch_and_counted():
-    """An empty bucket launches nothing; the wrapper's counter is the
-    registry's ``payload_chanest``."""
+    """An empty bucket launches nothing; a launch counts once as the
+    registry's ``kernel.payload_chanest.launches`` and once at its
+    shape."""
     dev = _card()
-    PCL.reset_launch_counts()
+    before = trace.snapshot()
     z = torch.zeros((0, 1, 900), device=dev)
     h, p = OF.payload_chanest(CF(z, z), Fmt.HT, 1, 1, None)
     assert h.re.shape == (0, 1, 1, 64) and p.re.shape == (0, 1, 4)
-    assert PCL.launch_counts()["payload_chanest"] == 0
+    assert _launches("payload_chanest") == before.get(
+        "kernel.payload_chanest.launches", 0)
     x = torch.zeros((3, 1, 900), device=dev)
     OF.payload_chanest(CF(x, x), Fmt.L, 0, 1, None)
-    assert PCL.launch_counts()["payload_chanest"] == 1
+    after = trace.snapshot()
+    moved = {k: v - before.get(k, 0) for k, v in after.items()
+             if k.startswith("kernel.") and v != before.get(k, 0)}
+    assert moved == {"kernel.payload_chanest.launches": 1,
+                     f"kernel.payload_chanest.at.3x1x{int(Fmt.L)}x1": 1}
 
 
 def test_k7_refuses_what_it_cannot_take():
     """Non-contiguous windows, windows that end before the training and
     SIG symbols, and a mix of devices raise before any launch."""
     dev = _card()
-    PCL.reset_launch_counts()
+    before = _launches("payload_chanest")
     x = torch.zeros((3, 2, 1800), device=dev)
     with pytest.raises(ValueError):
         OF.payload_chanest(CF(x[:, :, ::2], x[:, :, ::2]), Fmt.L, 0, 1)
@@ -126,4 +137,4 @@ def test_k7_refuses_what_it_cannot_take():
         OF.payload_chanest(CF(x, x), Fmt.VHT, 1, 1, 1800)
     with pytest.raises(ValueError):
         OF.payload_chanest(CF(x, x.cpu()), Fmt.L, 0, 1)
-    assert PCL.launch_counts()["payload_chanest"] == 0
+    assert _launches("payload_chanest") == before

@@ -74,7 +74,7 @@ def test_per_slot_results_equal(sweep, k):
                            spacing, N, nsnr)
     x = from_numpy_cf(P.timeline(call), "cpu")
     ok, li, valid = PSW.decode(PRX, c["cfg"], x, 1, c["ml"],
-                               PSW.max_pkts_for(nsnr * N), False, [])
+                               PSW.max_pkts_for(nsnr * N), False)
     assert len(ok) == len(call["ok"])
     ok_p, sync_p = P.slots(ok, li, valid, seg, spacing, N, nsnr)
     P.assert_slots_agree(c["name"], ok_j, sync_j, ok_p, sync_p, N, nsnr)

@@ -14,8 +14,10 @@ from gr_ieee80211_tpu_torch.ops import fastdecode as PFD
 from gr_ieee80211_tpu_torch.ops import viterbi_kernels as PVK
 from gr_ieee80211_tpu_torch.ops.cplx import from_numpy_cf
 from gr_ieee80211_tpu_torch.spec.params import from_reference
+from tools_torch import timing
 
 torch.set_num_threads(2)
+CPU = torch.device("cpu")
 
 
 def _stream(fmt, mcs, snr, num=5, seed=53, n=120):
@@ -55,8 +57,9 @@ def test_rx_chain_count_matches(chunk):
     """The bench hot path at 32 dB (VHT MCS7): 5 packets detected and
     decoded, unchunked and in chunks of 4, equal to the reference."""
     cfg, ml, s = _stream(Fmt.VHT, 7, 32.0)
-    rec = []
-    got = _port_count(cfg, ml, s, chunk=chunk, record=rec)
+    got, moved = timing.with_counters(
+        lambda: _port_count(cfg, ml, s, chunk=chunk), CPU)
+    rec = timing.decode_path(moved)
     assert got == _jax_count(cfg, ml, s, chunk=chunk) == (5, 5)
     assert len(rec) == (1 if chunk is None else 2) and "dd" not in rec
 
@@ -102,10 +105,9 @@ def test_chain_forced_through_viterbi(monkeypatch):
     monkeypatch.setattr(PVK, "acs_sweep_ref", acs_spy)
     monkeypatch.setattr(PVK, "traceback_ref", tb_spy)
     monkeypatch.setattr(PFD, "inverse_and_syndrome", ias_spy)
-    rec = []
-    got = _port_count(cfg, ml, s, record=rec)
+    got, moved = timing.with_counters(lambda: _port_count(cfg, ml, s), CPU)
     assert got == _jax_count(cfg, ml, s) == (5, 5)
-    assert rec == ["dd", "full"]
+    assert sorted(timing.decode_path(moved)) == ["dd", "full"]
     assert calls["acs"] >= 1 and calls["tb"] >= 1
     assert int((syn_seen[0] > 0).sum()) == 8
     # the packets themselves (not only the unused padding rows) had errors
@@ -152,11 +154,11 @@ def test_chain_ok_matches_on_bench_stream_18db():
     cfg, ml, s = _bench_stream_18db(128)
     ref = [np.asarray(x) for x in JRX.rx_chain_ok(
         cfg, from_host(s), nrx=1, mpdu_len=ml, max_pkts=128)]
-    rec = []
-    got = [x.numpy() for x in PRX.rx_chain_ok(
+    out, moved = timing.with_counters(lambda: PRX.rx_chain_ok(
         from_reference(cfg), from_numpy_cf(s, "cpu"), mpdu_len=ml,
-        max_pkts=128, record=rec)]
-    assert rec == ["dd", "full"]
+        max_pkts=128), CPU)
+    got = [x.numpy() for x in out]
+    assert sorted(timing.decode_path(moved)) == ["dd", "full"]
     for r, g in zip(ref, got):
         assert r.dtype == g.dtype and np.array_equal(r, g)
     assert got[2].sum() == 128 and 0 < got[0].sum() < 128

@@ -14,8 +14,8 @@ import numpy as np
 import pytest
 import torch
 
-from gr_ieee80211_tpu_torch.ops import cuda_lib as PCL
 from gr_ieee80211_tpu_torch.ops import viterbi as PV
+from gr_ieee80211_tpu_torch.utils import trace
 
 pytestmark = pytest.mark.gpu
 
@@ -24,6 +24,11 @@ def _card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     return torch.device("cuda", 0)
+
+
+def _launches(wrapper: str) -> float:
+    """``kernel.<wrapper>.launches`` in the program's counter registry."""
+    return trace.snapshot().get(f"kernel.{wrapper}.launches", 0)
 
 
 def _sig_llrs(rng, B_, T_):
@@ -43,9 +48,9 @@ def _sig_llrs(rng, B_, T_):
 
 def _held(x, from_zero):
     """K6 on ``x`` == the twin on the card; exactly one launch."""
-    before = PV.scan_viterbi.launches
+    before = _launches("scan_viterbi")
     got = PV.viterbi_decode(x, from_zero)
-    assert PV.scan_viterbi.launches == before + 1
+    assert _launches("scan_viterbi") == before + 1
     ref = PV.viterbi_decode_ref(x, from_zero)
     assert got.dtype == torch.uint8 and got.shape == x.shape[:2]
     assert torch.equal(got, ref)
@@ -105,14 +110,20 @@ def test_k6_noisy_code_words_decode():
 
 
 def test_k6_empty_and_counted():
-    """Empty batches or trellises launch nothing; the wrapper's counter is
-    the registry's ``scan_viterbi``."""
+    """Empty batches or trellises launch nothing; a launch counts once as
+    the registry's ``kernel.scan_viterbi.launches`` and once at its
+    shape."""
     dev = _card()
-    PCL.reset_launch_counts()
+    before = trace.snapshot()
     assert PV.viterbi_decode(torch.zeros((0, 26, 2), device=dev)).shape == (
         0, 26)
     assert PV.viterbi_decode(torch.zeros((3, 0, 2), device=dev)).shape == (
         3, 0)
-    assert PCL.launch_counts()["scan_viterbi"] == 0
+    assert _launches("scan_viterbi") == before.get(
+        "kernel.scan_viterbi.launches", 0)
     PV.viterbi_decode(torch.zeros((3, 26, 2), device=dev))
-    assert PCL.launch_counts()["scan_viterbi"] == 1
+    after = trace.snapshot()
+    moved = {k: v - before.get(k, 0) for k, v in after.items()
+             if k.startswith("kernel.") and v != before.get(k, 0)}
+    assert moved == {"kernel.scan_viterbi.launches": 1,
+                     "kernel.scan_viterbi.at.3x26": 1}

@@ -72,17 +72,23 @@ def runs():
     off = {"res": res_off, "spans": trace.spans(), "counts": trace.snapshot(),
            "events": events_off}
 
-    calls, items_seen, tiers, rows = [0], [0], [], [0]
+    calls, items_seen, decodes, rows, dd = [0], [0], [0], [0], [0]
     orig_bucket, orig_decode = PRX.RxEngine._decode_bucket, PRX.adaptive_decode
+    orig_refine = PRX.OF.refine_chanest_data
 
     def bucket(self, dev, canon, items, *a, **k):
         calls[0] += 1
         items_seen[0] += len(items)
         return orig_bucket(self, dev, canon, items, *a, **k)
 
-    def decode(coded, *a, record=None, **k):
+    def decode(coded, *a, **k):
+        decodes[0] += 1
         rows[0] += coded.shape[0]
-        return orig_decode(coded, *a, record=tiers, **k)
+        return orig_decode(coded, *a, **k)
+
+    def refine(*a, **k):
+        dd[0] += 1
+        return orig_refine(*a, **k)
 
     trace.reset()
     trace.enable()
@@ -91,13 +97,15 @@ def runs():
         with pytest.MonkeyPatch.context() as mp:
             mp.setattr(PRX.RxEngine, "_decode_bucket", bucket)
             mp.setattr(PRX, "adaptive_decode", decode)
+            mp.setattr(PRX.OF, "refine_chanest_data", refine)
             res_on, bids, events = _pass(views, bounds)
     finally:
         trace.disable()
     on = {"res": res_on, "spans": trace.spans(), "counts": trace.snapshot(),
           "summary": trace.summary(), "bids": bids, "bounds": bounds,
           "events": events, "calls": calls[0],
-          "items": items_seen[0], "tiers": tiers, "rows": rows[0]}
+          "items": items_seen[0], "decodes": decodes[0], "rows": rows[0],
+          "dd": dd[0]}
     trace.reset()
     return off, on
 
@@ -168,10 +176,11 @@ def test_bucket_and_tier_counters_match_the_wrappers(runs):
     assert c["rx.bucket.calls"] == on["calls"]
     assert c["rx.bucket.rows"] == on["items"]
     assert c["rx.blocks"] == 4
-    tiers = collections.Counter(on["tiers"])
-    got = {k[len("decode.tier."):]: v for k, v in c.items()
-           if k.startswith("decode.tier.")}
-    assert got == dict(tiers)
+    # one tier a decode, one rx.payload.dd a dd pass
+    assert on["decodes"] > 0
+    assert sum(v for k, v in c.items()
+               if k.startswith("decode.tier.")) == on["decodes"]
+    assert c.get("rx.payload.dd", 0) == on["dd"]
     assert c["decode.rows"] == on["rows"]
     assert 0 <= c["decode.rows_failed"] <= c["decode.rows"]
     assert c["rx.spec.armed_blocks"] == 1
@@ -235,9 +244,8 @@ def test_counts_snapshot_and_reset(clean):
     assert s["a"] == 3 and s["b"] == 0.5
     s["a"] = 100                      # a copy
     assert trace.snapshot()["a"] == 3
-    assert {k for k in s if k.startswith("kernel.")} >= {
-        "kernel.acs_sweep.launches", "kernel.traceback_sweep.launches",
-        "kernel.derotate.launches"}
+    # nothing but what was counted: no launch on the CPU
+    assert set(s) == {"a", "b"}
     trace.reset()
     assert "a" not in trace.snapshot()
 

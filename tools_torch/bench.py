@@ -102,15 +102,14 @@ def ref_ceiling(cfg, llr_per_sym=312) -> float:
 def run_point(PRX, cfg, mpdu_len, x, n_pkts, dev, reps, chunk=None):
     """One operating point: counted first call (counts, tiers, launches),
     then ``reps`` warmed timed calls."""
-    record = []
-
-    def call(rec=None):
+    def call():
         return PRX.rx_chain_count(cfg, x, mpdu_len=mpdu_len, max_pkts=n_pkts,
-                                  chunk=chunk, record=rec)
-    res, kern = timing.counted(lambda: call(record), dev)
+                                  chunk=chunk)
+    res, moved = timing.with_counters(call, dev)
     n_ok, n_det = (int(v) for v in res)
     t = timing.call_ms(call, dev, reps)
-    return {"n_ok": n_ok, "n_det": n_det, "path": record, **kern,
+    return {"n_ok": n_ok, "n_det": n_det, "path": timing.decode_path(moved),
+            **timing.kernel_launches(moved),
             "ms_per_batch": t["median_ms"], "q1_ms": t["q1_ms"],
             "q3_ms": t["q3_ms"], "pkt_per_s": n_pkts / t["median_ms"] * 1e3,
             "msamp_per_s": x.shape[-1] / t["median_ms"] / 1e3}

@@ -166,7 +166,9 @@ def main(argv=None) -> int:
                 break
             best = res
         return resident, warm, runs, best
-    (resident, warm, runs, best), kern = timing.counted(runs_on_card, dev)
+    (resident, warm, runs, best), moved = timing.with_counters(runs_on_card,
+                                                               dev)
+    kern = timing.kernel_launches(moved)
     bench.log(f"kernel launches (resident, warm-up and rungs): "
               f"{kern['launches']}")
     out = timing.out_path("daemon_throughput.json", a.out)

@@ -49,12 +49,13 @@ def build_stream(burst, n_pkts, gap, rng, snr_db=32.0):
 
 
 def run(name, fn, n_pkts, dev, reps, out):
-    (n_ok, n_det), kern = timing.counted(
+    (n_ok, n_det), moved = timing.with_counters(
         lambda: tuple(int(v) for v in fn()), dev)
     t = timing.call_ms(fn, dev, reps)
     out[name] = {"n_ok": n_ok, "n_det": n_det, "ms_per_batch": t["median_ms"],
                  "q1_ms": t["q1_ms"], "q3_ms": t["q3_ms"],
-                 "pkt_per_s": n_pkts / t["median_ms"] * 1e3, **kern}
+                 "pkt_per_s": n_pkts / t["median_ms"] * 1e3,
+                 **timing.kernel_launches(moved)}
     bench.log(f"{name}: ok {n_ok}/{n_pkts}, det {n_det}, "
               f"{t['median_ms']:.2f} ms/batch, "
               f"{out[name]['pkt_per_s']:,.0f} pkt/s")

@@ -231,9 +231,10 @@ def main(argv=None) -> int:
     mcs_list = [int(x) for x in a.mcs.split(",")]
     batches = tuple(int(x) for x in a.batches.split(","))
 
-    (fused, daemon), kern = timing.counted(
+    (fused, daemon), moved = timing.with_counters(
         lambda: (run_fused_latency(mcs_list, batches, dev),
                  run_daemon_rtt(mcs_list, a.n_pkts, dev)), dev)
+    kern = timing.kernel_launches(moved)
     device = timing.device_info(dev)
     out = timing.out_path("latency.json", a.out)
     timing.write_json(out, {

@@ -99,8 +99,9 @@ def main(argv=None) -> int:
     a = ap.parse_args(argv)
 
     import torch
-    from gr_ieee80211_tpu_torch.ops import cuda_lib as CL
     from gr_ieee80211_tpu_torch.parallel import distributed as D
+    from gr_ieee80211_tpu_torch.utils import trace
+    from tools_torch import timing
     if torch.device(a.device).type == "cpu":
         torch.set_num_threads(2)
 
@@ -138,12 +139,10 @@ def main(argv=None) -> int:
 
         sync = (torch.cuda.synchronize if mesh.local_devices[0].type == "cuda"
                 else (lambda: None))
-        CL.reset_launch_counts()
+        before = trace.snapshot()
         n_ok, n_det = once()
         sync()
-        launches = CL.launch_counts()
-        shapes = CL.launch_shapes()
-        shapes = sorted(shapes["acs_sweep"] | shapes["traceback_sweep"])
+        kern = timing.kernel_launches(timing.moved(before, trace.snapshot()))
         ts = []
         for _ in range(a.reps):
             tic = time.perf_counter()
@@ -154,8 +153,8 @@ def main(argv=None) -> int:
         if ts:
             print(f"{a.mode.upper()}TIME ms={statistics.median(ts):.1f}",
                   flush=True)
-        print(f"LAUNCHES {json.dumps(launches)}", flush=True)
-        print(f"SHAPES {json.dumps([list(bt) for bt in shapes])}", flush=True)
+        print(f"LAUNCHES {json.dumps(kern['launches'])}", flush=True)
+        print(f"SHAPES {json.dumps(kern['k1_k2_shapes'])}", flush=True)
     finally:
         import torch.distributed as dist
         dist.destroy_process_group()

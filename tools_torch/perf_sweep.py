@@ -157,16 +157,14 @@ def mu_wave(mcs: int, n_payload: int, rng, txe, h0, bfq):
     return cfg, len(mpdu), wave[None], rms
 
 
-def decode(PRX, cfg, x, nrx: int, mpdu_len: int, max_pkts: int, mu: bool,
-           record: list):
+def decode(PRX, cfg, x, nrx: int, mpdu_len: int, max_pkts: int, mu: bool):
     """(ok, ltf_idx, valid) numpy arrays of the known-config chain."""
     if mu:
         out = PRX.rx_chain_ok_mu(cfg, x, n_total=2, own=0, nrx=1,
-                                 mpdu_len=mpdu_len, max_pkts=max_pkts,
-                                 record=record)
+                                 mpdu_len=mpdu_len, max_pkts=max_pkts)
     else:
         out = PRX.rx_chain_ok(cfg, x, nrx=nrx, mpdu_len=mpdu_len,
-                              max_pkts=max_pkts, record=record)
+                              max_pkts=max_pkts)
     return tuple(t.cpu().numpy() for t in out)
 
 
@@ -176,18 +174,17 @@ def sweep_one(PRX, cfg, mpdu_len, w, rms, snrs, n, rng, dev, mu=False):
     stream, seg, spacing = build_timeline(w, rms, snrs, n, rng)
     max_pkts = max_pkts_for(len(snrs) * n)
     x = from_numpy_cf(stream, dev)
-    record = []
     tic = time.perf_counter()
-    (ok, ltf_idx, valid), kern = timing.counted(
-        lambda: decode(PRX, cfg, x, w.shape[0], mpdu_len, max_pkts, mu,
-                       record), dev)
+    (ok, ltf_idx, valid), moved = timing.with_counters(
+        lambda: decode(PRX, cfg, x, w.shape[0], mpdu_len, max_pkts, mu), dev)
     ms = 1e3 * (time.perf_counter() - tic)
     slots = slot_ok(ok, ltf_idx, valid, seg, spacing, n, len(snrs))
     per = [1.0 - float(slots[s * n:(s + 1) * n].mean())
            for s in range(len(snrs))]
     entry = {"snr_db": [float(v) for v in snrs], "per": per,
              "n_det": int(valid.sum()), "max_pkts": max_pkts,
-             "path": sorted(set(record)), "decode_ms": ms, **kern}
+             "path": sorted(set(timing.decode_path(moved))), "decode_ms": ms,
+             **timing.kernel_launches(moved)}
     dump = {"ok": ok, "ltf_idx": ltf_idx, "valid": valid, "ok_slot": slots,
             "seg": seg, "spacing": spacing,
             "digest": hashlib.sha256(stream.tobytes()).hexdigest()}

@@ -184,16 +184,16 @@ def mode_chain(dev, reps, a) -> list[dict]:
     rows = []
     for snr, s in streams.items():
         x = from_numpy_cf(s[None], dev)
-        record = []
 
-        def call(rec=None):
-            return PRX.rx_chain_count(cfg, x, mpdu_len=len(mpdu), max_pkts=B,
-                                      record=rec)
-        res, kern = timing.counted(lambda: call(record), dev)
+        def call():
+            return PRX.rx_chain_count(cfg, x, mpdu_len=len(mpdu), max_pkts=B)
+        res, moved = timing.with_counters(call, dev)
         rows.append({"path": f"rx_chain_count B={B} VHT mcs7 530 B MPDU "
                              f"{snr:g} dB",
-                     "n_ok_n_det": [int(v) for v in res], "tiers": record,
-                     **kern, **measure(dev, call, chain_stages(), reps)})
+                     "n_ok_n_det": [int(v) for v in res],
+                     "tiers": timing.decode_path(moved),
+                     **timing.kernel_launches(moved),
+                     **measure(dev, call, chain_stages(), reps)})
     return rows
 
 
@@ -247,19 +247,17 @@ def mode_canon(dev, reps, a) -> list[dict]:
            "canon_n_trellis": canon.n_trellis,
            "real_nsym": [c.nsym for c in cfgs]}
     for name, n_real_t in (("with_n_real", nr), ("without_n_real", None)):
-        record = []
-
-        def call(rec=None):
+        def call():
             return PRX._payload_core(canon, x, li, cfo, nrx=1,
-                                     n_real=n_real_t, record=rec)["psdu"]
-        psdu, kern = timing.counted(lambda: call(record), dev)
+                                     n_real=n_real_t)["psdu"]
+        psdu, moved = timing.with_counters(call, dev)
         psdu = psdu.cpu().numpy()
         exact = sum(1 for i in range(B)
                     if psdu[i][: len(psdus[i % 3])].tobytes() == psdus[i % 3])
         t = timing.call_ms(call, dev, reps)
         out[name] = {"ms": t["median_ms"], "q1_ms": t["q1_ms"],
-                     "q3_ms": t["q3_ms"], "tiers": record,
-                     "psdus_exact": exact, **kern}
+                     "q3_ms": t["q3_ms"], "tiers": timing.decode_path(moved),
+                     "psdus_exact": exact, **timing.kernel_launches(moved)}
     out["speedup"] = out["without_n_real"]["ms"] / out["with_n_real"]["ms"]
     return [out]
 
@@ -332,16 +330,12 @@ def mode_fallback(dev, reps, a) -> list[dict]:
     out = {"path": f"decode tiers B={B} T={T_} cr={cr}", "B": B, "T": T_,
            "cr": cr}
     for name, (fn, ref) in cases.items():
-        record = []
-        if name.startswith("tile"):
-            FD.adaptive_decode(x8 if name == "tile8" else x300, cr, T_,
-                               record=record)
-        res, kern = timing.counted(fn, dev)
+        res, moved = timing.with_counters(fn, dev)
         t = timing.call_ms(fn, dev, reps)
         out[name] = {"ms": t["median_ms"], "q1_ms": t["q1_ms"],
-                     "q3_ms": t["q3_ms"], **kern}
-        if record:
-            out[name]["tiers"] = record
+                     "q3_ms": t["q3_ms"], **timing.kernel_launches(moved)}
+        if name.startswith("tile"):
+            out[name]["tiers"] = timing.decode_path(moved)
         if ref is not None:
             want_bits = ref()
             out[name]["rows_equal"] = int((res == want_bits).all(dim=1).sum())

@@ -9,9 +9,11 @@
   or ``"cpu"``.
 * :func:`out_path` puts a tool's JSON under ``results_torch/`` unless
   ``--out`` names another file; :func:`write_json` writes it.
-* :func:`kernel_launches` reads the kernels' launch counters and K1/K2's
-  launch shapes, :func:`counted` runs a function between a reset and a
-  read of them.
+* :func:`with_counters` runs a function between two ``utils/trace`` snapshots
+  and returns the counters that moved (:func:`moved`);
+  :func:`kernel_launches` turns those into the kernels' launches and
+  K1/K2's launch shapes, :func:`decode_path` into the decode tiers and
+  dd passes that ran.
 """
 from __future__ import annotations
 
@@ -87,21 +89,44 @@ def write_json(path: Path, blob: dict) -> None:
     path.write_text(json.dumps(blob, indent=1) + "\n")
 
 
-def kernel_launches() -> dict:
-    """The kernels' launch counts since the last reset and the (B, T)
-    shapes K1/K2 launched at."""
-    from gr_ieee80211_tpu_torch.ops import cuda_lib as CL
-    shapes = CL.launch_shapes()
-    return {"launches": CL.launch_counts(),
-            "k1_k2_shapes": sorted([list(s) for s in shapes["acs_sweep"]
-                                    | shapes["traceback_sweep"]])}
+def moved(before: dict, after: dict) -> dict:
+    """Counter name -> change, for each counter that differs between two
+    ``trace.snapshot()`` readings."""
+    return {k: v - before.get(k, 0) for k, v in after.items()
+            if v != before.get(k, 0)}
 
 
-def counted(fn, dev):
-    """``fn()`` with the launch counters zeroed before and read after:
-    (result, :func:`kernel_launches`)."""
+def kernel_launches(diff: dict) -> dict:
+    """``{"launches": {wrapper: n}, "k1_k2_shapes": [[B, T], ...]}`` from
+    the :func:`moved` counters: every kernel wrapper (0 where none
+    launched) and the (B, T) shapes K1/K2 launched at."""
     from gr_ieee80211_tpu_torch.ops import cuda_lib as CL
-    CL.reset_launch_counts()
+    names = [CL.wrapper_name(ep) for ep in CL._ENTRY_POINTS]
+    shapes = {tuple(int(d) for d in k.rsplit(".", 1)[1].split("x"))
+              for k in diff if k.startswith(("kernel.acs_sweep.at.",
+                                             "kernel.traceback_sweep.at."))}
+    return {"launches": {n: int(diff.get(f"kernel.{n}.launches", 0))
+                         for n in names},
+            "k1_k2_shapes": sorted(list(s) for s in shapes)}
+
+
+def decode_path(diff: dict) -> list[str]:
+    """The decode tiers (``decode.tier.<name>``) and dd passes (``"dd"``)
+    among the :func:`moved` counters, each as often as it ran, sorted."""
+    out = []
+    for k, n in sorted(diff.items()):
+        if k.startswith("decode.tier."):
+            out += [k[len("decode.tier."):]] * int(n)
+        elif k == "rx.payload.dd":
+            out += ["dd"] * int(n)
+    return out
+
+
+def with_counters(fn, dev):
+    """``fn()`` between two counter snapshots, the device synchronized
+    before the second: (result, the :func:`moved` counters)."""
+    from gr_ieee80211_tpu_torch.utils import trace
+    before = trace.snapshot()
     out = fn()
     synchronize(dev)
-    return out, kernel_launches()
+    return out, moved(before, trace.snapshot())

@@ -115,9 +115,7 @@ def mode_sync(a) -> dict:
             if dev.type == "cuda":
                 torch.cuda.set_sync_debug_mode(0)
             warnings.showwarning = shown
-    after = trace.snapshot()
-    moved = {k: after.get(k, 0) - before.get(k, 0) for k in after
-             if after.get(k, 0) != before.get(k, 0)}
+    moved = timing.moved(before, trace.snapshot())
     counted = {k: v for k, v in moved.items() if k.startswith("sync.")}
     by_line: dict[str, int] = {}
     for s in seen:
@@ -130,9 +128,11 @@ def mode_sync(a) -> dict:
             "counted_syncs": counted.get("sync.total", 0),
             "agree": in_port == counted.get("sync.total", 0),
             "counted_by_site": dict(sorted(counted.items())),
-            "decode_and_launches": {k: v for k, v in sorted(moved.items())
-                                    if k.startswith(("decode.", "kernel.",
-                                                     "rx.bucket."))},
+            "decode_and_launches": {
+                k: v for k, v in sorted(moved.items())
+                if k.startswith(("decode.", "kernel.", "rx.bucket.",
+                                 "rx.payload.")) and ".at." not in k},
+            **timing.kernel_launches(moved),
             "pytorch_by_line": dict(sorted(by_line.items(),
                                            key=lambda kv: -kv[1]))}
 
