@@ -31,7 +31,12 @@ Phases (any failure exits non-zero before the final line):
    the daemon cells' bucket shapes (every branch at one or two rows, one
    and two antennas) and at the chain's 4096 rows (the L and P-matrix
    estimates bit-equal, the refined ones within 1e-5 of the row's
-   largest |h|), with CUDA-event and host times of both.  Each kernel's
+   largest |h|), with CUDA-event and host times of both; and the payload
+   demodulation (K8) against its twin at the daemon cells' buckets (every
+   equalizer branch) and at the chain's (4096, 1) and (4096, 2) VHT MCS7
+   buckets and (4096, 2) with two streams (every LLR within 1e-5 of the
+   row's largest |LLR|, the share of symbols bit-equal), with CUDA-event
+   and host times of both.  Each kernel's
    bound (the larger of its bytes over
    the card's memory rate and its operations over the float32 lane
    rate) is computed from these inputs;
@@ -100,7 +105,8 @@ Phases (any failure exits non-zero before the final line):
    trigger per packet after dedup, each within [-64, 8] of its start;
    (i4) ``payload_decode_dp`` on 4096 windows cut from the 32 dB stream at
    the packet starts (>= 99% pass FCS, sampled PSDUs equal the bytes
-   sent; the scan Viterbi, K6 once a shard and no other kernel) and 1024
+   sent; the demodulation K8 and the scan Viterbi K6, once a shard each,
+   and no other kernel) and 1024
    2x2 VHT 2-SS windows (all pass); (i5) ``mu_chain_dp`` on phase (g)'s
    2048 station-0 PPDUs cut into one capture a shard (32 dB: all
    detected, >= 99% ok; 12 dB:
@@ -651,6 +657,77 @@ def phase_payload_chanest(torch, OF):
             "replaces": None, "max_abs_err": worst,
             **{k2: v for k2, v in times[tag].items() if k2 != "gap"},
             **k7_bound, "library_ms": None,
+            **{f"{k2}_at_{t}": v for t, tm in times.items() if t != tag
+               for k2, v in tm.items()}}
+
+
+#: K8's shapes (format, MCS, streams, antennas, rows, symbols: None = the
+#: packets' own): the daemon cells' buckets (one or two rows of every
+#: equalizer branch), then the chain's 4096 rows: bench.py's VHT MCS7
+#: bucket (17 symbols) on one antenna (SISO) and two (MRC), and two streams
+K8_SHAPES = (("L", 5, 1, 1, 1, None), ("HT", 3, 1, 1, 1, None),
+             ("VHT", 4, 1, 1, 2, None), ("HT", 3, 1, 2, 1, None),
+             ("HT", 11, 2, 2, 1, None), ("VHT", 5, 2, 2, 2, None),
+             ("VHT", 7, 1, 1, 4096, 17), ("VHT", 7, 1, 2, 4096, 17),
+             ("VHT", 4, 2, 2, 4096, 17))
+
+
+def phase_payload_demod(torch, OF):
+    """K8 (the payload demodulation in one launch) against its twin at
+    ``K8_SHAPES`` from the tests' windows at 25 dB and the twin's channel
+    estimate: every LLR within 1e-5 times the row's channel condition
+    number of its row's largest |LLR| (a phasor rounding, should PyTorch
+    sum the pilots in another order than K8's), the share of symbols
+    bit-equal; CUDA-event and host times of both; returns its record,
+    timed at the chain's one-antenna shape, and the other shapes' times
+    beside."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    import _chanest_windows as W
+    from gr_ieee80211_tpu_torch.spec.params import Fmt
+    dev = torch.device("cuda", 0)
+    times, worst = {}, 0.0
+    for k, (fname, mcs, nss, nrx, B_, nsym) in enumerate(K8_SHAPES):
+        cfg, xs, ds, h, ph = W.demod_case((Fmt[fname], mcs, nss), nrx, B_,
+                                          nsym, 800 + k, dev)
+        args = (xs, ds, h, ph, cfg)
+        got = OF.payload_demod(*args)
+        ref = OF.payload_demod_ref(*args)
+        torch.cuda.synchronize()
+        rel = ((got - ref).abs().amax(dim=1)
+               / ref.abs().amax(dim=1)).double()
+        gap = float(rel.max())
+        kappa = W.row_condition(h, cfg.fmt == Fmt.L)
+        check(bool((rel <= 1e-5 * kappa).all()), f"K8's LLRs are {gap:.3g} "
+              f"of max |LLR| from the twin's at {K8_SHAPES[k]}")
+        worst = max(worst, gap)
+        same = float((got == ref).reshape(B_, cfg.nsym, -1).all(dim=2)
+                     .float().mean())
+        tag = f"{fname}{nss}x{nrx}_b{B_}_n{cfg.nsym}"
+        times[tag] = {
+            "ms": cuda_ms(lambda: OF.payload_demod(*args), KERNEL_REPS),
+            "plain_ms": cuda_ms(lambda: OF.payload_demod_ref(*args), 3),
+            "host_ms": host_ms(torch, lambda: OF.payload_demod(*args),
+                               KERNEL_REPS),
+            "plain_host_ms": host_ms(
+                torch, lambda: OF.payload_demod_ref(*args), 3),
+            "gap": gap, "symbols_bit_equal": same}
+        log(f"kernels: payload_demod == twin at {tag}; "
+            + ", ".join(f"{k2} {v:.4g}" for k2, v in times[tag].items()))
+    # the chain's shape, (B, nrx, nsym) = (4096, 1, 17), VHT MCS7: the 64
+    # samples of each symbol's window read, the estimate (64 + 4 complex)
+    # and 17 x 312 LLRs written; a window's DFT is 64 x 64 x 4 float64
+    # multiply-adds (two lane-operations each: the float64 rate is half the
+    # float32 one); the equalizer and demap ~100 float operations a tone
+    tag = "VHT1x1_b4096_n17"
+    B_, nsym = 4096, 17
+    k8_bound = bound(B_ * (nsym * 64 * 8 + 68 * 8 + nsym * 312 * 4),
+                     B_ * nsym * 64 * (2 * 64 * 4 + 100))
+    return {"name": "payload_demod", "route": "cuda",
+            "source": "gr_ieee80211_tpu_torch/csrc/payload_demod.cu",
+            "replaces": None, "max_abs_err": worst,
+            **{k2: v for k2, v in times[tag].items()
+               if k2 not in ("gap", "symbols_bit_equal")},
+            **k8_bound, "library_ms": None,
             **{f"{k2}_at_{t}": v for t, tm in times.items() if t != tag
                for k2, v in tm.items()}}
 
@@ -1838,14 +1915,16 @@ def phase_mesh(torch, PRX, CF, from_numpy_cf, bench, chain_res,
     check(bool((psdu[torch.from_numpy(rows), : len(am)].cpu().numpy()
                 == np.frombuffer(am, np.uint8)[None]).all()),
           "(i4) sampled PSDUs differ from the bytes sent")
-    check(counts["scan_viterbi"] == len(mesh_dp.shards)
-          and not any(v for k, v in counts.items() if k != "scan_viterbi"),
-          f"(i4) launched other than K6 once a shard: {counts}")
+    once = ("scan_viterbi", "payload_demod")
+    check(all(counts[k] == len(mesh_dp.shards) for k in once)
+          and not any(v for k, v in counts.items() if k not in once),
+          f"(i4) launched other than K8 and K6 once a shard: {counts}")
     ms = median_ms(torch, lambda: step(wd), reps=3, warm=False)
     log(f"mesh (i4) payload_decode_dp: {B} windows of {n_samp} samples on "
         f"{n} shards, {total} pass FCS, {len(rows)} sampled PSDUs equal the "
-        f"bytes sent; {ms:.1f} ms/call (CUDA events, median of 3; scan "
-        f"Viterbi K6, {-(-cfg.n_trellis // 54) * 54} steps; {smi})")
+        f"bytes sent; {ms:.1f} ms/call (CUDA events, median of 3; "
+        f"demodulation K8, scan Viterbi K6, "
+        f"{-(-cfg.n_trellis // 54) * 54} steps; {smi})")
     out["i4"] = {"windows": B, "ok": total, "ms": ms}
     from gr_ieee80211_tpu_torch.gold import mac, tx
     from gr_ieee80211_tpu_torch.spec.params import Fmt, PhyConfig
@@ -2312,15 +2391,17 @@ def main() -> int:
     check({k.split("<")[0] for k in ptxas} == {
         "acs_kernel", "traceback_kernel", "derotate_kernel",
         "acs_packed_kernel", "traceback_packed_kernel",
-        "scan_viterbi_kernel", "payload_chanest_kernel"},
-        f"ptxas did not name the seven package kernels: {sorted(ptxas)}")
+        "scan_viterbi_kernel", "payload_chanest_kernel",
+        "payload_demod_kernel"},
+        f"ptxas did not name the eight package kernels: {sorted(ptxas)}")
     spilled = {k: v for k, v in ptxas.items() if v["spill_bytes"]}
     check(not spilled, f"package kernels spill registers: {spilled}")
 
     kernels = (phase_kernels(torch, VK)
                + phase_kernels_extra(torch, VK, FE)
                + [phase_scan_viterbi(torch, V),
-                  phase_payload_chanest(torch, OF)])
+                  phase_payload_chanest(torch, OF),
+                  phase_payload_demod(torch, OF)])
     bench = TB.bench_streams(B)         # bench.py's streams
     launches, chain_ok, chain_res = phase_chain(torch, VK, PRX,
                                                 from_numpy_cf, bench)
@@ -2363,7 +2444,8 @@ def main() -> int:
     for k in kernels:
         name = k["name"]
         k["on_path"] = name in ("acs_sweep", "traceback_sweep",
-                                "scan_viterbi", "payload_chanest")
+                                "scan_viterbi", "payload_chanest",
+                                "payload_demod")
         if name in ("acs_sweep", "traceback_sweep"):
             # also held at the MU path's shapes and at every path's
             k["max_abs_err"] = max(k["max_abs_err"],

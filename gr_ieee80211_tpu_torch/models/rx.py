@@ -264,11 +264,7 @@ def _payload_core_mu(cfg: PhyConfig, stream: CF, ltf_idx: torch.Tensor,
                  for r in range(nrx)], dim=1)
     h_all, pilot_h = OF.nl_chanest(xs, ltf_start, nltf, n_total)
     h = h_all[:, :, own: own + cfg.nss]
-    grids = OF.fft_syms(cstack([OF.extract_sym_windows(xs[:, r], data_start,
-                                                       cfg.nsym)
-                                for r in range(nrx)], dim=1))
-    llr = OF.equalize_and_demap(grids, h, pilot_h, cfg)
-    coded = OF.deinterleave_deparse(llr, cfg)
+    coded = OF.payload_demod(xs, data_start, h, pilot_h, cfg)
     bits = adaptive_decode(coded, cfg.cr, cfg.n_trellis)
     data = OF.descramble_bits(bits)
     psdu_bits = data[:, 16: 16 + 8 * cfg.psdu_len]
@@ -385,7 +381,10 @@ def _payload_core(cfg: PhyConfig, stream: CF, ltf_idx: torch.Tensor,
                   n_real: torch.Tensor | None = None,
                   want_sssnr: bool = False) -> dict:
     """Payload demod + decode for one config bucket, with the reference's
-    channel refinements (SISO and the gated dd pass, 1 stream only).
+    channel refinements (SISO and the gated dd pass, 1 stream only).  On
+    the card the channel estimate is one K7 launch and the demodulation
+    (symbol DFTs to coded-order LLRs) one K8 launch; the dd pass, where
+    its gate passes, takes the symbol grids from the twin's DFT.
 
     stream: (>= nrx, N).  Returns a dict with ``psdu`` (B, psdu_len)
     uint8, ``service`` (B, 16), ``sssnr0`` (B,) with ``want_sssnr`` for
@@ -402,20 +401,17 @@ def _payload_core(cfg: PhyConfig, stream: CF, ltf_idx: torch.Tensor,
         h, pilot_h = OF.payload_chanest(
             xs, cfg.fmt, cfg.nltf, cfg.nss,
             data_start - 80 if cfg.fmt == Fmt.VHT else None)
-    with trace.span("rx.payload.fft"):
-        grids = OF.fft_syms(cstack([
-            OF.extract_sym_windows(xs[:, r], data_start, cfg.nsym)
-            for r in range(nrx)], dim=1))
     if cfg.nss == 1:
         with trace.span("rx.payload.dd_gate"):
             dd = _dd_gate(xs, cfg)
         if dd:
             trace.count("rx.payload.dd")
+            with trace.span("rx.payload.fft"):
+                grids = OF.payload_grids(xs, data_start, cfg.nsym)
             with trace.span("rx.payload.dd"):
                 h, pilot_h = OF.refine_chanest_data(grids, h, pilot_h, cfg)
-    with trace.span("rx.payload.demap"):
-        llr = OF.equalize_and_demap(grids, h, pilot_h, cfg)
-        coded = OF.deinterleave_deparse(llr, cfg)    # (B, nsym*ncbps)
+    with trace.span("rx.payload.demod"):
+        coded = OF.payload_demod(xs, data_start, h, pilot_h, cfg)
     with trace.span("rx.payload.decode"):
         bits = adaptive_decode(coded, cfg.cr, cfg.n_trellis, n_real=n_real)
     with trace.span("rx.payload.bytes"):

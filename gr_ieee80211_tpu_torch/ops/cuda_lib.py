@@ -10,7 +10,7 @@ launch builds.
 
 The wrappers that launch the kernels (``ops/viterbi_kernels.py``,
 ``ops/viterbi.scan_viterbi``, ``ops/frontend.derotate``,
-``ops/ofdm.payload_chanest``) share the helpers here: the CPU-tensor /
+``ops/ofdm.payload_chanest``, ``ops/ofdm.payload_demod``) share the helpers here: the CPU-tensor /
 CUDA-tensor split (:func:`on_cuda`), the alignment of vector-loaded
 operands (:func:`aligned`) and the launch itself (:func:`launch`), which
 counts every accepted launch in the ``utils/trace`` registry as
@@ -46,6 +46,7 @@ _ENTRY_POINTS = {
     "gr80211_derotate": [_VP] * 5 + [_CI, _CI, _CF, _VP],
     "gr80211_scan_viterbi": [_VP] * 3 + [_CI, _CI, _CI, _VP],
     "gr80211_payload_chanest": [_VP] * 7 + [_CI] * 8 + [_CF, _CF, _VP],
+    "gr80211_payload_demod": [_VP] * 8 + [_CI] * 10 + [_CF, _VP],
 }
 
 

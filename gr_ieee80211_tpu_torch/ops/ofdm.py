@@ -5,6 +5,10 @@ leading, in the reference's layouts: DFT over (..., 64) windows onto the
 fftshifted grid, channel estimation and refinement, equalization, LLR
 demap, the deinterleave/deparse gather, descrambling and byte packing,
 for up to two receive antennas and two spatial streams (ZF/MRC).
+Two stages of a bucket run as one hand-written CUDA kernel each on the
+card: the channel estimate (:func:`payload_chanest`, K7) and the
+demodulation from the windows to coded-order LLRs
+(:func:`payload_demod`, K8); CPU tensors take their plain twins.
 """
 from __future__ import annotations
 
@@ -562,6 +566,135 @@ def deinterleave_deparse(llr: torch.Tensor, cfg: PhyConfig) -> torch.Tensor:
     """(B, nss, nsym*ncbpss) interleaved LLRs -> (B, nsym*ncbps) coded order."""
     perm = _perm_on(cfg.fmt, cfg.nbpscs, cfg.nss, cfg.nsym, llr.device)
     return llr.reshape(llr.shape[0], -1)[:, perm]
+
+
+def payload_grids(xs: CF, data_start: int, nsym: int) -> CF:
+    """(B, nrx, n) derotated windows -> (B, nrx, nsym, 64) grids of the
+    data symbols whose GIs begin at data_start + 80*k."""
+    return fft_syms(cstack([extract_sym_windows(xs[:, r], data_start, nsym)
+                            for r in range(xs.shape[1])], dim=1))
+
+
+def payload_demod_ref(xs: CF, data_start: int, h: CF, pilot_h: CF,
+                      cfg: PhyConfig) -> torch.Tensor:
+    """Plain twin of K8: the payload's demodulation as eager torch
+    operations, the symbol DFTs (:func:`payload_grids`), then
+    :func:`equalize_and_demap` and :func:`deinterleave_deparse`.  Returns
+    coded-order LLRs (B, nsym*ncbps) float32."""
+    llr = equalize_and_demap(payload_grids(xs, data_start, cfg.nsym), h,
+                             pilot_h, cfg)
+    return deinterleave_deparse(llr, cfg)
+
+
+#: (name in ``csrc/payload_demod.cu``, floats) of the head of K8's constant
+#: table; the pilot and permutation parts follow (:func:`_demod_parts`)
+DEMOD_HEAD = (("kDftC", 4096), ("kDftS", 4096), ("kDataPosL", 64),
+              ("kDataPosNl", 64), ("kPilotIdx", 4))
+#: the data pilots repeat every 4 symbols (rotation) x 127 (polarity)
+PILOT_PERIOD = 508
+_PILOT_CFGS = ((Fmt.L, 1), (Fmt.HT, 1), (Fmt.HT, 2), (Fmt.VHT, 1),
+               (Fmt.VHT, 2))
+_PERM_CFGS = tuple([(True, m, 1) for m in (1, 2, 4, 6)]
+                   + [(False, m, s) for s in (1, 2) for m in (1, 2, 4, 6, 8)])
+
+
+@functools.lru_cache(maxsize=None)
+def _demod_parts() -> tuple[np.ndarray, dict]:
+    """K8's constants as one float32 host array, and where its parts start:
+    the head (``DEMOD_HEAD``: the twin's DFT matrices, each tone's index
+    among the data tones (-1 off them), the pilot tones); per (fmt, nss),
+    ``("pilots", fmt, nss)``: ``gold/tx.data_pilots`` over one period,
+    (508, rows, 4), two rows for HT with two streams (each stream's own
+    polarities), else the first; per (legacy, nbpscs, nss), ``("perm",
+    legacy, nbpscs, nss)``: the coded position within a symbol of each
+    stream's interleaved LLR, (nss, ncbpss): the inverse of one symbol of
+    :func:`_deint_deparse_perm`."""
+    c, s = _dft64_mats()
+    pos_l = np.full(64, -1.0)
+    pos_l[T.DATA_IDX_L] = np.arange(T.DATA_IDX_L.size)
+    pos_nl = np.full(64, -1.0)
+    pos_nl[T.DATA_IDX_NL] = np.arange(T.DATA_IDX_NL.size)
+    parts = [c, s, pos_l, pos_nl, T.PILOT_IDX]
+    assert [np.size(a) for a in parts] == [n for _, n in DEMOD_HEAD]
+    at, off = {}, sum(n for _, n in DEMOD_HEAD)
+    for fmt, nss in _PILOT_CFGS:
+        pil = data_pilots(fmt, nss, 2 * PILOT_PERIOD)
+        assert np.array_equal(pil[:PILOT_PERIOD], pil[PILOT_PERIOD:])
+        rows = 2 if fmt == Fmt.HT and nss == 2 else 1
+        parts.append(pil[:PILOT_PERIOD, :rows])
+        at["pilots", fmt, nss], off = off, off + parts[-1].size
+    for legacy, nbpscs, nss in _PERM_CFGS:
+        perm = _deint_deparse_perm(Fmt.L if legacy else Fmt.HT, nbpscs, nss, 1)
+        parts.append(np.argsort(perm))
+        at["perm", legacy, nbpscs, nss], off = off, off + perm.size
+    tab = np.concatenate([np.ravel(a).astype(np.float32) for a in parts])
+    return tab, at
+
+
+@functools.lru_cache(maxsize=None)
+def _demod_table(device: torch.device) -> torch.Tensor:
+    """K8's constants (:func:`_demod_parts`) on ``device``, uploaded once."""
+    with trace.sync("table_upload"):
+        return torch.from_numpy(_demod_parts()[0]).to(device)
+
+
+def payload_demod(xs: CF, data_start: int, h: CF, pilot_h: CF,
+                  cfg: PhyConfig) -> torch.Tensor:
+    """The payload's demodulation of a bucket in one launch of K8
+    (``csrc/payload_demod.cu``): what :func:`payload_demod_ref` computes,
+    the data symbols' DFTs, pilot phase, equalizer (SISO division, MRC or
+    two-stream ZF), LLR demap and deinterleave / deparse, for every row.
+
+    xs: (B, nrx, n) float32 derotated windows (origin = ltf_idx), nrx 1 or
+    2; data_start: the first data symbol's GI; h: (B, nrx, nss, 64) and
+    pilot_h: (B, nrx, 4) float32, the estimate to equalize with; cfg: the
+    bucket's config (nss 1 or 2; ``cfg.nsym`` symbols).  Returns coded-order
+    LLRs (B, nsym*ncbps) float32.  CPU tensors take the twin; CUDA tensors
+    launch the kernel or raise."""
+    require(xs.re.ndim == 3 and xs.im.shape == xs.re.shape,
+            f"payload_demod takes (B, nrx, n) windows, got "
+            f"{tuple(xs.re.shape)} / {tuple(xs.im.shape)}")
+    B, nrx, n = xs.re.shape
+    require(nrx in (1, 2) and cfg.nss in (1, 2),
+            f"payload_demod: no equalizer for nrx={nrx}, nss={cfg.nss}")
+    require(h.re.shape == h.im.shape == (B, nrx, cfg.nss, 64)
+            and pilot_h.re.shape == pilot_h.im.shape == (B, nrx, 4),
+            f"payload_demod: estimates {tuple(h.re.shape)} / "
+            f"{tuple(pilot_h.re.shape)} do not fit windows {(B, nrx, n)} "
+            f"and nss={cfg.nss}")
+    require(all(t.dtype == torch.float32 for t in (*xs, *h, *pilot_h)),
+            "payload_demod takes float32 windows and estimates")
+    require(0 <= data_start and data_start + 80 * cfg.nsym <= n,
+            f"payload_demod: windows of {n} samples end before the "
+            f"{cfg.nsym} data symbols from {data_start}")
+    if not on_cuda(*xs, *h, *pilot_h):
+        return payload_demod_ref(xs, data_start, h, pilot_h, cfg)
+    return _demod_kernel(xs, data_start, h, pilot_h, cfg)
+
+
+def _demod_kernel(xs: CF, data_start: int, h: CF, pilot_h: CF,
+                  cfg: PhyConfig) -> torch.Tensor:
+    """Launch K8 on CUDA windows; the estimates are made contiguous (the
+    MU path equalizes with a slice of its streams)."""
+    require(xs.re.is_contiguous() and xs.im.is_contiguous(),
+            "payload_demod takes contiguous windows")
+    B, nrx, n = xs.re.shape
+    dev = xs.re.device
+    out = torch.empty((B, cfg.nsym * cfg.ncbps), dtype=torch.float32,
+                      device=dev)
+    if B == 0 or cfg.nsym == 0:
+        return out
+    h = CF(h.re.contiguous(), h.im.contiguous())
+    pilot_h = CF(pilot_h.re.contiguous(), pilot_h.im.contiguous())
+    at = _demod_parts()[1]
+    launch("gr80211_payload_demod", dev, xs.re.data_ptr(), xs.im.data_ptr(),
+           h.re.data_ptr(), h.im.data_ptr(), pilot_h.re.data_ptr(),
+           pilot_h.im.data_ptr(), _demod_table(dev).data_ptr(),
+           out.data_ptr(), n, B, nrx, cfg.nss, int(cfg.fmt), cfg.nbpscs,
+           cfg.nsym, data_start, at["pilots", cfg.fmt, cfg.nss],
+           at["perm", cfg.fmt == Fmt.L, cfg.nbpscs, cfg.nss],
+           float(T.KMOD[cfg.nbpscs]), shape=(B, nrx, cfg.nss, cfg.nsym))
+    return out
 
 
 @functools.lru_cache(maxsize=None)

@@ -158,7 +158,7 @@ def payload_decode_multihost(cfg: PhyConfig, mesh: M.Mesh, mpdu_len: int = 0,
     n_samp = _data_start(cfg) + 80 * cfg.nsym
 
     def step(pieces: list[CF]):
-        outs = [M._local_decode(cfg, mpdu_len, nrx, p) for p in pieces]
+        outs = [M._local_decode(cfg, mpdu_len, p) for p in pieces]
         dev = pieces[0].device
         (total,) = _all_sum(M._psum([o[2] for o in outs], dev))
         return (torch.cat([o[0].to(dev) for o in outs]),

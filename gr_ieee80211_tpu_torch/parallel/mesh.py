@@ -38,7 +38,7 @@ from ..ops import crc as CRC
 from ..ops import frontend as FE
 from ..ops import ofdm as OF
 from ..ops import viterbi as V
-from ..ops.cplx import CF, cstack, csum, expj
+from ..ops.cplx import CF, csum, expj
 from ..spec.params import Fmt, PhyConfig
 
 
@@ -148,12 +148,13 @@ def _psum(counts: list[torch.Tensor], device) -> torch.Tensor:
 # dp: packet-sharded payload decode
 # ---------------------------------------------------------------------------
 
-def _local_decode(cfg: PhyConfig, mpdu_len: int, nrx: int, xs: CF):
+def _local_decode(cfg: PhyConfig, mpdu_len: int, xs: CF):
     """One shard of :func:`payload_decode_dp`: (b, [nrx,] n_samp) windows
     with t = 0 at the L-LTF -> (psdu (b, psdu_len) uint8, fcs ok (b,),
     ok count).  The fine CFO comes from antenna 0's LTF lag-64
     autocorrelation and is applied as one direct phasor per sample;
-    channel estimation without refinement; the scan Viterbi."""
+    channel estimation without refinement; the demodulation
+    (:func:`ops.ofdm.payload_demod`); the scan Viterbi."""
     if xs.ndim == 2:
         xs = CF(xs.re[:, None], xs.im[:, None])
     b, _, n_samp = xs.shape
@@ -172,11 +173,7 @@ def _local_decode(cfg: PhyConfig, mpdu_len: int, nrx: int, xs: CF):
         h, pilot_h = OF.nl_chanest(xs, 208 + 160 + 80, cfg.nltf, cfg.nss)
         if cfg.fmt == Fmt.HT:
             pilot_h = csum(h[:, :, :, pidx], dim=2)
-    ds = RX._data_start(cfg)
-    grids = OF.fft_syms(cstack([OF.extract_sym_windows(xs[:, r], ds, cfg.nsym)
-                                for r in range(nrx)], dim=1))
-    llr = OF.equalize_and_demap(grids, h, pilot_h, cfg)
-    coded = OF.deinterleave_deparse(llr, cfg)
+    coded = OF.payload_demod(xs, RX._data_start(cfg), h, pilot_h, cfg)
     bits = V.viterbi_decode(V.depuncture(coded, cfg.cr, cfg.n_trellis))
     data = OF.descramble_bits(bits)
     psdu_bits = data[:, 16: 16 + 8 * cfg.psdu_len]
@@ -199,13 +196,15 @@ def payload_decode_dp(cfg: PhyConfig, mesh: Mesh, mpdu_len: int = 0,
     divisible by the shard count and t = 0 at the L-LTF window, and
     returns (psdu (B, psdu_len) uint8, fcs_ok (B,), the global ok count),
     all on the first shard's device.  Like the reference it decodes with
-    the scan Viterbi (``ops.viterbi.viterbi_decode``): on the card one
-    launch of K6 a shard and no other kernel."""
+    the scan Viterbi (``ops.viterbi.viterbi_decode``): on the card the
+    demodulation is one launch of K8 (``ops.ofdm.payload_demod``) and the
+    decode one of K6 a shard.  ``nrx`` names the windows' antenna count
+    (their shape carries it)."""
     n_samp = RX._data_start(cfg) + 80 * cfg.nsym
     devs = mesh.shards
 
     def step(wins: CF):
-        outs = [_local_decode(cfg, mpdu_len, nrx, xs)
+        outs = [_local_decode(cfg, mpdu_len, xs)
                 for xs in _split(wins, devs)]
         return (torch.cat([o[0].to(devs[0]) for o in outs]),
                 torch.cat([o[1].to(devs[0]) for o in outs]),

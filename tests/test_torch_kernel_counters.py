@@ -19,7 +19,7 @@ from gr_ieee80211_tpu_torch.ops import ofdm as OF
 from gr_ieee80211_tpu_torch.ops import viterbi as V
 from gr_ieee80211_tpu_torch.ops import viterbi_kernels as VK
 from gr_ieee80211_tpu_torch.ops.cplx import CF
-from gr_ieee80211_tpu_torch.spec.params import Fmt
+from gr_ieee80211_tpu_torch.spec.params import Fmt, PhyConfig
 from gr_ieee80211_tpu_torch.utils import trace
 from tools_torch import timing
 
@@ -27,7 +27,7 @@ torch.set_num_threads(2)
 
 WRAPPERS = ("acs_sweep", "traceback_sweep", "acs_sweep_packed",
             "traceback_sweep_packed", "derotate", "scan_viterbi",
-            "payload_chanest")
+            "payload_chanest", "payload_demod")
 
 
 def _moved(before: dict) -> dict:
@@ -111,7 +111,12 @@ def _cpu_call(name: str):
     if name == "scan_viterbi":
         return V.scan_viterbi(llr[:, :26].contiguous())
     x = torch.from_numpy(rng.normal(size=(2, 2, 1, 400)).astype(np.float32))
-    return OF.payload_chanest(CF(x[0], x[1]), Fmt.L, 0, 1)
+    if name == "payload_chanest":
+        return OF.payload_chanest(CF(x[0], x[1]), Fmt.L, 0, 1)
+    h = torch.from_numpy(rng.normal(size=(2, 2, 1, 1, 64)).astype(np.float32))
+    return OF.payload_demod(CF(x[0], x[1]), 208, CF(h[0], h[1]),
+                            CF(h[0][:, :, 0, :4], h[1][:, :, 0, :4]),
+                            PhyConfig(Fmt.L, 0, 1, 1))
 
 
 @pytest.mark.parametrize("name", WRAPPERS)
@@ -131,7 +136,8 @@ def test_tools_read_launches_and_shapes_from_the_change():
     assert timing.kernel_launches(diff) == {
         "launches": {"acs_sweep": 2, "traceback_sweep": 1,
                      "acs_sweep_packed": 0, "traceback_sweep_packed": 0,
-                     "derotate": 0, "scan_viterbi": 4, "payload_chanest": 0},
+                     "derotate": 0, "scan_viterbi": 4, "payload_chanest": 0,
+                     "payload_demod": 0},
         "k1_k2_shapes": [[8, 128], [64, 4480]]}
     assert timing.moved({"a": 1, "b": 2}, {"a": 1, "b": 5, "c": 1}) == {
         "b": 3, "c": 1}

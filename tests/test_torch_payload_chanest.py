@@ -9,16 +9,14 @@ float32 rounding of the twin's sums in the one-stream refinement.
 
 K7 itself is held to the twin on the card by
 ``tests/test_torch_payload_chanest_card.py``."""
-import ctypes
 import re
-import shutil
-import subprocess
 
 import numpy as np
 import pytest
 import torch
 
 import _chanest_windows as W
+import _cuda_cpu
 from gr_ieee80211_tpu_torch.ops import cuda_lib as PCL
 from gr_ieee80211_tpu_torch.ops import ofdm as OF
 from gr_ieee80211_tpu_torch.ops.cplx import CF, csum, cstack, from_numpy_cf
@@ -153,28 +151,8 @@ def test_payload_chanest_source_matches_wrapper():
 def k7_on_cpu(tmp_path_factory):
     """K7's source built for the CPU (g++, the shim header): its C entry
     point, with the wrapper's argument types."""
-    gxx = shutil.which("g++")
-    if gxx is None:
-        pytest.skip("needs g++ to build the kernel's source for the CPU")
-    shim = PCL.CSRC.parents[1] / "tests" / "cuda_cpu_shim.h"
-    src = _cu().replace("#include <cuda_runtime.h>",
-                        f'#include "{shim}"')
-    src, n = re.subn(r"(\w+)<<<(.*?)>>>\((.*?)\);",
-                     lambda m: f"emu_launch({m.group(2)}, [&] "
-                               f"{{ {m.group(1)}({m.group(3)}); }});",
-                     src, flags=re.S)
-    assert n == 1
-    d = tmp_path_factory.mktemp("k7_cpu")
-    (d / "k7.cpp").write_text(src)
-    out = subprocess.run([gxx, "-std=c++20", "-O1", "-ffp-contract=off",
-                          "-fPIC", "-shared", "-pthread", "-o",
-                          str(d / "k7.so"), str(d / "k7.cpp")],
-                         capture_output=True, text=True, timeout=240)
-    assert out.returncode == 0, out.stderr[-3000:]
-    fn = ctypes.CDLL(str(d / "k7.so")).gr80211_payload_chanest
-    fn.argtypes = PCL._ENTRY_POINTS["gr80211_payload_chanest"]
-    fn.restype = ctypes.c_int
-    return fn
+    return _cuda_cpu.build("payload_chanest", "gr80211_payload_chanest",
+                           tmp_path_factory.mktemp("k7_cpu"))
 
 
 def _run_on_cpu(fn, monkeypatch, xs, cfg, sigb_gi, refine):

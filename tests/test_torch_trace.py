@@ -140,12 +140,19 @@ def test_spans_nest_as_the_stages_do(runs):
     for n in ("rx.upload", "rx.front", "rx.spec", "rx.readback",
               "rx.classify",
               "rx.bucket", "rx.ndp", "rx.assemble", "rx.payload.derotate",
-              "rx.payload.chanest", "rx.payload.fft", "rx.payload.dd_gate",
-              "rx.payload.demap", "rx.payload.decode", "rx.payload.bytes",
+              "rx.payload.chanest", "rx.payload.dd_gate",
+              "rx.payload.demod", "rx.payload.decode", "rx.payload.bytes",
               "rx.payload.crc", "sync.nonzero", "sync.rows",
               "sync.front_readback", "sync.bucket_readback",
               "sync.spec_readback"):
         assert n in names, n
+    # the symbol grids are taken apart from the demodulation only for a dd
+    # pass, one a pass, in its bucket call
+    fft = [s for s in spans if s.name == "rx.payload.fft"]
+    dd = [s for s in spans if s.name == "rx.payload.dd"]
+    assert len(fft) == len(dd) == on["counts"].get("rx.payload.dd", 0)
+    for f, d in zip(fft, dd):
+        assert f.block == d.block and f.t1 <= d.t0, (f, d)
     for s in spans:
         if s.name.startswith("rx.payload."):
             assert s.parent in ("rx.bucket", "rx.spec"), s

@@ -77,8 +77,8 @@ def test_rows_2ss_counts_the_two_stream_rows(traced):
 def test_zf_spans_sit_in_two_stream_buckets_only(traced):
     spans = traced["spans"]
     zf = [s for s in spans if s.name == "rx.payload.zf"]
-    demap = [s for s in spans if s.name == "rx.payload.demap"]
-    assert all(s.parent == "rx.payload.demap" for s in zf)
+    demap = [s for s in spans if s.name == "rx.payload.demod"]
+    assert all(s.parent == "rx.payload.demod" for s in zf)
     holds = [any(d.t0 <= z.t0 and z.t1 <= d.t1 and z.block == d.block
                  for z in zf) for d in demap]
     n2 = sum(1 for nss, _ in traced["buckets"] if nss == 2)

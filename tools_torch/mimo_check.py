@@ -11,15 +11,19 @@ of a cell's results kept for a comparison between two trees.
 * ``ref``: the inputs of cell ``daemon_2x2_mixed_30dB`` from the seed, one
   warm pass of ``RxEngine(nrx=2)`` over its blocks, then one pass in
   which every two-stream bucket's ``_payload_core`` call keeps its
-  channel estimate (``ops.ofdm.payload_chanest``), its equalized symbols
-  (``ops.ofdm.zf_equalize``), its LLRs (``equalize_and_demap``) and its
-  SERVICE and PSDU bits.  Each real row is then decoded by
+  channel estimate (``ops.ofdm.payload_chanest``), its coded-order LLRs
+  (``ops.ofdm.payload_demod``: K8 on the card), its equalized symbols
+  where the twin runs (``ops.ofdm.zf_equalize``, on the CPU; K8 keeps
+  them to itself) and its SERVICE and PSDU bits.  Each real row is then
+  decoded by
   ``benchmark/reference/mimo_rx.py`` (float64, on the CPU) from the same
   view at the program's own start and CFO under the packet's own
   transmit vector, and the two compared: (a) the (2, 2, 64) estimates
   over the occupied tones, relative to the reference's largest
-  magnitude; (b) the equalized symbols and the LLRs of the packet's own
-  symbols, relative to the reference's rms; (c) the SERVICE and PSDU
+  magnitude; (b) the equalized symbols (where kept) and the LLRs of the
+  packet's own symbols, taken back to the interleaved order through the
+  inverse of the deinterleave / deparse permutation, relative to the
+  reference's rms; (c) the SERVICE and PSDU
   bits, which must be equal wherever either decodes the PSDU sent.
   Prints the largest gaps, their medians over the rows and the rows
   whose bits differ (and whether either side decoded the packet), as
@@ -30,8 +34,9 @@ of a cell's results kept for a comparison between two trees.
   fields, ``psdu`` and ``sssnr0`` included, into ``--out``; beside them,
   every ``_payload_core`` call's config, PSDU and SERVICE bits, FCS
   flags and ``sssnr0``, and the channel estimate its equalizer took
-  (``ops.ofdm.equalize_and_demap``'s ``h`` and ``pilot_h``: the stage's
-  own, or the dd pass's where that ran).
+  (``ops.ofdm.payload_demod``'s ``h`` and ``pilot_h``, or on a tree
+  without it ``equalize_and_demap``'s: the stage's own, or the dd pass's
+  where that ran).
 * ``same``: whether two dumps agree: every field, PSDU, SERVICE bit and
   FCS flag bit for bit; every ``sssnr0`` within ``SSSNR_DB``; every
   estimate of an L or two-stream call bit for bit, of a one-stream
@@ -87,12 +92,13 @@ def ref_pass(seed: int, device: str, small: bool = False):
     kept: list[dict] = []
     cur: dict = {}
     orig = (RX.RxEngine._decode_bucket, RX._payload_core, OF.payload_chanest,
-            OF.zf_equalize, OF.equalize_and_demap)
+            OF.zf_equalize, OF.payload_demod)
 
     def bucket(self, d, canon, items, ltf_idx, cfo, *rest):
         if canon.nss == 2:
             cur["items"] = [(c, int(ltf_idx[i]), float(cfo[i]))
                             for i, c in items]
+            cur["canon"] = canon
         try:
             return orig[0](self, d, canon, items, ltf_idx, cfo, *rest)
         finally:
@@ -117,14 +123,14 @@ def ref_pass(seed: int, device: str, small: bool = False):
             cur["eq"] = _cplx(eq)
         return eq
 
-    def demap(*x, **k):
-        llr = orig[4](*x, **k)
+    def demod(*x, **k):
+        coded = orig[4](*x, **k)
         if "items" in cur:
-            cur["llr"] = llr.cpu().numpy()
-        return llr
+            cur["coded"] = coded.cpu().numpy()
+        return coded
 
     (RX.RxEngine._decode_bucket, RX._payload_core, OF.payload_chanest,
-     OF.zf_equalize, OF.equalize_and_demap) = bucket, payload, chan, zf, demap
+     OF.zf_equalize, OF.payload_demod) = bucket, payload, chan, zf, demod
     try:
         for k, v in enumerate(views):
             cur_view = len(kept)
@@ -133,7 +139,7 @@ def ref_pass(seed: int, device: str, small: bool = False):
                 b["view"] = k
     finally:
         (RX.RxEngine._decode_bucket, RX._payload_core, OF.payload_chanest,
-         OF.zf_equalize, OF.equalize_and_demap) = orig
+         OF.zf_equalize, OF.payload_demod) = orig
     return inp, kept
 
 
@@ -160,6 +166,18 @@ def _ref_row(item) -> dict:
     return {k: ref[k][0].numpy() for k in ("h", "eq", "llr", "bits")}
 
 
+def _interleaved(b: dict) -> np.ndarray:
+    """A bucket's coded-order LLRs (B, nsym*ncbps) back in the equalizer's
+    order, (B, nss, nsym*ncbpss): the inverse of the deinterleave /
+    deparse permutation."""
+    from gr_ieee80211_tpu_torch.ops import ofdm as OF
+    c, coded = b["canon"], b["coded"]
+    perm = OF._deint_deparse_perm(c.fmt, c.nbpscs, c.nss, c.nsym)
+    out = np.empty_like(coded)
+    out[:, perm] = coded
+    return out.reshape(coded.shape[0], c.nss, -1)
+
+
 def compare(inp: dict, kept: list[dict]) -> dict:
     from benchmark import core
     from benchmark.reference import mimo_rx as MRX
@@ -177,14 +195,17 @@ def compare(inp: dict, kept: list[dict]) -> dict:
     with core.workers() as pool:
         refs = pool.map(_ref_row, items, chunksize=4)
     h_gap, eq_gap, llr_gap, bad = [], [], [], []
+    for b in kept:
+        b["llr"] = _interleaved(b)
     for (b, j, c, li, rc), ref in zip(rows, refs):
         hr = ref["h"]
         h_gap.append(float(np.abs(b["h"][j] - hr)[..., occ].max()
                            / np.abs(hr[..., occ]).max()))
-        er = ref["eq"]
-        ep = b["eq"][j][:, : rc.nsym]
-        eq_gap.append(float(np.abs(ep - er).max()
-                            / np.sqrt(np.mean(np.abs(er) ** 2))))
+        if "eq" in b:
+            er = ref["eq"]
+            ep = b["eq"][j][:, : rc.nsym]
+            eq_gap.append(float(np.abs(ep - er).max()
+                                / np.sqrt(np.mean(np.abs(er) ** 2))))
         lr = ref["llr"].reshape(2, -1)
         lp = b["llr"][j].reshape(2, -1)[:, : lr.shape[1]]
         llr_gap.append(float(np.abs(lp - lr).max()
@@ -242,7 +263,13 @@ def mode_dump(a) -> int:
         eng.finish_process(eng.begin_process(v))
 
     calls: list[dict] = []
-    orig = (RX._payload_core, OF.equalize_and_demap)
+    # the stage that takes the estimate: K8's wrapper, or on a tree
+    # without it the eager equalizer (h and pilot_h after one more
+    # argument: the windows and the data start, or the grids)
+    stage = ("payload_demod" if hasattr(OF, "payload_demod")
+             else "equalize_and_demap")
+    at = 2 if stage == "payload_demod" else 1
+    orig = (RX._payload_core, getattr(OF, stage))
 
     def payload(canon, *x, **k):
         calls.append({"cfg": np.array([int(canon.fmt), canon.mcs,
@@ -253,16 +280,18 @@ def mode_dump(a) -> int:
             if f in out})
         return out
 
-    def demap(grids, h, pilot_h, *x, **k):
-        calls[-1].update(h=_cplx(h), pilot_h=_cplx(pilot_h))
-        return orig[1](grids, h, pilot_h, *x, **k)
+    def demod(*x, **k):
+        calls[-1].update(h=_cplx(x[at]), pilot_h=_cplx(x[at + 1]))
+        return orig[1](*x, **k)
 
-    RX._payload_core, OF.equalize_and_demap = payload, demap
+    RX._payload_core = payload
+    setattr(OF, stage, demod)
     try:
         res = [r for v in views
                for r in eng.finish_process(eng.begin_process(v))]
     finally:
-        RX._payload_core, OF.equalize_and_demap = orig
+        RX._payload_core = orig[0]
+        setattr(OF, stage, orig[1])
     cols = {f: np.array([np.nan if getattr(r, f) is None
                          else float(getattr(r, f)) for r in res])
             for f in FIELDS}

@@ -18,9 +18,10 @@ Modes:
 * ``chain``: ``rx_chain_count`` on ``bench.py``'s stream (VHT MCS7, 530 B
   MPDU, B packets) at 32 and 18 dB, with detect and dedup, sync (window
   gather, coarse CFO, LTF metric and fine CFO), demod (derotate, channel
-  estimate with its SISO refinement (K7 on the card, one stage), dd gate
-  and pass, symbol windows, DFT,
-  equalize and demap, deinterleave), decode (GF(2) inverse + syndrome,
+  estimate with its SISO refinement (K7 on the card, one stage), dd gate,
+  the dd pass's symbol grids and refinement, the demodulation: symbol
+  DFTs, pilot phase, equalizer, demap and deinterleave (K8 on the card,
+  one stage)), decode (GF(2) inverse + syndrome,
   the tier taken, K1 + K2 inside ``viterbi_decode``), descramble, bytes
   and CRC as stages;
 * ``canon``: the engine's canonical bucket (VHT MCS5 packets of three
@@ -166,9 +167,8 @@ def chain_stages():
             (FE, "ltf_fine_sync_cfo"), (FE, "_ltf_metric"),
             (PRX, "_payload_core"), (FE, "derotate_batch"),
             (OF, "payload_chanest"), (PRX, "_dd_gate"),
-            (OF, "refine_chanest_data"), (OF, "extract_sym_windows"),
-            (OF, "fft_syms"), (OF, "equalize_and_demap"),
-            (OF, "deinterleave_deparse"), (PRX, "adaptive_decode"),
+            (OF, "payload_grids"), (OF, "refine_chanest_data"),
+            (OF, "payload_demod"), (PRX, "adaptive_decode"),
             (FD, "inverse_and_syndrome"), (FD, "_tile"), (FD, "_win_tile"),
             (FD, "_mism_recompute"), (FD, "_full"), (FD, "viterbi_decode"),
             (FD, "decode_window_rows"), (OF, "descramble_bits"),
@@ -379,8 +379,8 @@ def mode_txmu(dev, reps, a) -> list[dict]:
                  (PRX, "_sync_core"), (PRX, "_mu_sigb_core"),
                  (PRX, "_payload_core_mu"), (PRX, "_sigb_crc_ok"),
                  (FE, "derotate_batch"), (OF, "nl_chanest"),
-                 (OF, "fft_syms"), (OF, "equalize_and_demap"),
-                 (OF, "deinterleave_deparse"), (PRX, "adaptive_decode"),
+                 (OF, "fft_syms"), (OF, "payload_demod"),
+                 (PRX, "adaptive_decode"),
                  (V, "viterbi_decode"), (OF, "descramble_bits"),
                  (OF, "bits_to_bytes_batch"), (CRC, "fcs_ok_batch")]
     for snr in (CS.SNR_HI, CS.SNR_MU_LO):

@@ -20,7 +20,8 @@
   off reports one more, outside the port).  Beside them, the change of
   the ``decode.*`` counters (rows, failed rows, calls by tier), of the
   kernel wrappers' launches and of the bucket calls and rows over the
-  pass.
+  pass, and whether K7's and K8's launches (``kernel.payload_chanest`` /
+  ``kernel.payload_demod.launches``) each equal ``rx.bucket.calls``.
 * ``overhead``: untraced runs of the cell (``benchmark/run.py --trace
   0``), in turns with the program's spans off (as the benchmark runs)
   and forced on (``trace.enable()`` before the run), one seed, ``--runs``
@@ -132,6 +133,14 @@ def mode_sync(a) -> dict:
                 k: v for k, v in sorted(moved.items())
                 if k.startswith(("decode.", "kernel.", "rx.bucket.",
                                  "rx.payload.")) and ".at." not in k},
+            "bucket_calls": moved.get("rx.bucket.calls", 0),
+            "k7_k8_launches": [
+                moved.get("kernel.payload_chanest.launches", 0),
+                moved.get("kernel.payload_demod.launches", 0)],
+            "one_k7_k8_launch_a_bucket": (
+                moved.get("kernel.payload_chanest.launches", 0)
+                == moved.get("kernel.payload_demod.launches", 0)
+                == moved.get("rx.bucket.calls", 0)),
             **timing.kernel_launches(moved),
             "pytorch_by_line": dict(sorted(by_line.items(),
                                            key=lambda kv: -kv[1]))}
