@@ -21,6 +21,15 @@ back from that device.
   and its data, and SIG-B is validated against the CRC in the SERVICE
   field.  Without ``mu_pos`` an MU PPDU falls through to the HT-SIG /
   L-SIG classification, as in the reference.
+
+  Departure from the reference: ``RxEngine(mu_pos=...)`` reports every
+  MU PPDU of its group with a stream at its position exactly once.  One
+  whose SIG-B gives no decodable config, whose window overruns the block
+  or whose SERVICE field disagrees with its SIG-B comes out not ok (with
+  the MCS field of its SIG-B as decoded), as a data packet that fails its
+  decode does; the reference drops such a PPDU without a result.  An MU
+  PPDU of another group, or with no stream at the position, is still not
+  reported.
 """
 from __future__ import annotations
 
@@ -259,19 +268,26 @@ def _payload_core_mu(cfg: PhyConfig, stream: CF, ltf_idx: torch.Tensor,
     ``service`` and, with ``mpdu_len``, ``mpdu_fcs_ok``."""
     nltf, ltf_start, _, data_start = _mu_starts(n_total)
     n_need = data_start + 80 * cfg.nsym + 16
-    xs = cstack([FE.derotate_batch(stream[r], ltf_idx, cfo, n_need,
-                                   low_prec=True)
-                 for r in range(nrx)], dim=1)
-    h_all, pilot_h = OF.nl_chanest(xs, ltf_start, nltf, n_total)
-    h = h_all[:, :, own: own + cfg.nss]
-    coded = OF.payload_demod(xs, data_start, h, pilot_h, cfg)
-    bits = adaptive_decode(coded, cfg.cr, cfg.n_trellis)
-    data = OF.descramble_bits(bits)
-    psdu_bits = data[:, 16: 16 + 8 * cfg.psdu_len]
-    out = {"psdu": OF.bits_to_bytes_batch(psdu_bits), "service": data[:, :16]}
-    if mpdu_len > 4:
-        mpdu_bits = psdu_bits[:, 32: 32 + 8 * mpdu_len]
-        out["mpdu_fcs_ok"] = CRC.fcs_ok_batch(mpdu_bits, 8 * mpdu_len)
+    with trace.span("rx.payload.derotate"):
+        xs = cstack([FE.derotate_batch(stream[r], ltf_idx, cfo, n_need,
+                                       low_prec=True)
+                     for r in range(nrx)], dim=1)
+    with trace.span("rx.payload.chanest"):
+        h_all, pilot_h = OF.nl_chanest(xs, ltf_start, nltf, n_total)
+        h = h_all[:, :, own: own + cfg.nss]
+    with trace.span("rx.payload.demod"):
+        coded = OF.payload_demod(xs, data_start, h, pilot_h, cfg)
+    with trace.span("rx.payload.decode"):
+        bits = adaptive_decode(coded, cfg.cr, cfg.n_trellis)
+    with trace.span("rx.payload.bytes"):
+        data = OF.descramble_bits(bits)
+        psdu_bits = data[:, 16: 16 + 8 * cfg.psdu_len]
+        out = {"psdu": OF.bits_to_bytes_batch(psdu_bits),
+               "service": data[:, :16]}
+    with trace.span("rx.payload.crc"):
+        if mpdu_len > 4:
+            mpdu_bits = psdu_bits[:, 32: 32 + 8 * mpdu_len]
+            out["mpdu_fcs_ok"] = CRC.fcs_ok_batch(mpdu_bits, 8 * mpdu_len)
     return out
 
 
@@ -792,8 +808,15 @@ class RxEngine:
                 if cfg is None:
                     kinds.append(None)
                     continue
-                if isinstance(cfg, tuple):          # ("mu", siga, lsig)
-                    kinds.append(cfg)
+                if isinstance(cfg, tuple):
+                    # ("mu", siga, lsig) for this station, ("mu_foreign",)
+                    # for another group or no stream at its position
+                    if cfg[0] == "mu":
+                        trace.count("rx.mu.rows")
+                        kinds.append(cfg)
+                    else:
+                        trace.count("rx.mu.foreign")
+                        kinds.append(None)
                     continue
                 canon = canonical_cfg(cfg)
                 if ltf_idx[i] + _data_start(canon) + 80 * canon.nsym + 16 \
@@ -934,32 +957,50 @@ class RxEngine:
 
     def _mu_group(self, dev, nsts, idxs, ltf_idx, cfo, trigs, kinds,
                   results, n_stream, snr_db, rssi):
-        """One nsts tuple's SIG-B pass and payload decodes."""
+        """One nsts tuple's SIG-B pass and payload decodes.  Every row gets
+        one result: not ok, with the MCS field of its SIG-B as decoded,
+        where SIG-B gives no decodable config (``rx.mu.sigb_rejected``) or
+        the window overruns the block; not ok, with its config, where the
+        SERVICE field's CRC disagrees with SIG-B
+        (``rx.mu.service_rejected``) or no MPDU passes its FCS."""
         n_total = sum(nsts)
         own = sum(nsts[: self.mu_pos])
-        sel = np.zeros(_pad_batch(len(idxs)), np.int64)
-        sel[: len(idxs)] = idxs
-        sigb_b = _host(_mu_sigb_core(dev[0], self._rows(ltf_idx[sel]),
-                                     self._rows(cfo[sel]), n_total, own),
-                       "mu_readback")
+        nss = nsts[self.mu_pos]
+        trace.count("rx.mu.groups")
+        with trace.span("rx.mu.sigb"):
+            sel = np.zeros(_pad_batch(len(idxs)), np.int64)
+            sel[: len(idxs)] = idxs
+            sigb_b = _host(_mu_sigb_core(dev[0], self._rows(ltf_idx[sel]),
+                                         self._rows(cfo[sel]), n_total,
+                                         own), "mu_readback")
         nltf, _, _, data_start = _mu_starts(n_total)
+
+        def failed(i, mcs):
+            return RxResult(False, Fmt.VHT, mcs, nss, int(ltf_idx[i]),
+                            float(cfo[i]), trig=int(trigs[i]),
+                            snr_db=float(snr_db[i]), rssi=float(rssi[i]))
+
         buckets: dict[PhyConfig, list[tuple[int, np.ndarray]]] = {}
         for j, i in enumerate(idxs):
             sigb = S.parse_vhtsigb(sigb_b[j], mu=True)
             lsig = kinds[i][2]
             n_data = lsig.nsym * 80 - (160 + 80 + 80 * nltf + 80)
             nsym = max(n_data // 80, 0)
-            if (nsym == 0 or not sigb.ok or sigb.mcs > 8
-                    or not (1 <= sigb.length <= 4095)):
+            if not (nsym > 0 and nss <= 2 and sigb.ok and sigb.mcs <= 8
+                    and 1 <= sigb.length <= 4095):
+                trace.count("rx.mu.sigb_rejected")
+                results[i] = failed(i, int(sigb_b[j][16:20].astype(np.int64)
+                                           @ (1, 2, 4, 8)))
                 continue
             if ltf_idx[i] + data_start + 80 * nsym + 16 > n_stream:
+                results[i] = failed(i, sigb.mcs)
                 continue
-            cfg = PhyConfig(Fmt.VHT, sigb.mcs, nsts[self.mu_pos],
-                            sigb.length, ampdu=True, mu_nsym=nsym)
-            if cfg.nsym != nsym:
-                continue
+            cfg = PhyConfig(Fmt.VHT, sigb.mcs, nss, sigb.length, ampdu=True,
+                            mu_nsym=nsym)
             buckets.setdefault(cfg, []).append((i, sigb.crc))
         for cfg, items in buckets.items():
+            trace.count("rx.mu.calls")
+            trace.count("rx.mu.call_rows", len(items))
             sel = np.zeros(_pad_batch(len(items)), np.int64)
             sel[: len(items)] = [i for i, _ in items]
             out = _payload_core_mu(cfg, dev, self._rows(ltf_idx[sel]),
@@ -968,29 +1009,28 @@ class RxEngine:
             psdu = _host(out["psdu"], "mu_readback")
             service = _host(out["service"], "mu_readback")
             for j, (i, crc) in enumerate(items):
-                if not np.array_equal(service[j, 8:16], crc):
-                    continue
-                r = RxResult(False, Fmt.VHT, cfg.mcs, cfg.nss,
-                             int(ltf_idx[i]), float(cfo[i]),
-                             trig=int(trigs[i]), snr_db=float(snr_db[i]),
-                             rssi=float(rssi[i]))
-                r.psdu = psdu[j].tobytes()
-                r.mpdus = MAC.ampdu_deaggregate(r.psdu)
-                r.ok = len(r.mpdus) > 0
-                results[i] = r
+                if np.array_equal(service[j, 8:16], crc):
+                    results[i] = self._mk_data_result(
+                        cfg, psdu[j].tobytes(), int(ltf_idx[i]),
+                        float(cfo[i]), int(trigs[i]), float(snr_db[i]),
+                        float(rssi[i]), None)
+                else:
+                    trace.count("rx.mu.service_rejected")
+                    results[i] = failed(i, cfg.mcs)
 
     def _classify(self, lsig, ht_bits, vht_bits):
-        """-> (PhyConfig | ("mu", siga, lsig) | None, ndp_nss | None).
-        Without ``mu_pos`` an MU VHT-SIG-A is skipped here and the PPDU
-        falls through to the HT-SIG / L-SIG checks."""
+        """-> (PhyConfig | ("mu", siga, lsig) | ("mu_foreign",) | None,
+        ndp_nss | None).  ``("mu_foreign",)``: an MU PPDU of another group
+        or with no stream at ``mu_pos``, which is not decoded.  Without
+        ``mu_pos`` an MU VHT-SIG-A is skipped here and the PPDU falls
+        through to the HT-SIG / L-SIG checks."""
         if lsig.mcs != 0:
             return PhyConfig(Fmt.L, lsig.mcs, 1, lsig.length), None
         siga = S.parse_vhtsiga(vht_bits)
         if siga.ok and siga.mu and self.mu_pos is not None:
-            if self.mu_gid is not None and siga.group_id != self.mu_gid:
-                return None, None
-            if siga.nsts[self.mu_pos] == 0:
-                return None, None
+            if ((self.mu_gid is not None and siga.group_id != self.mu_gid)
+                    or siga.nsts[self.mu_pos] == 0):
+                return ("mu_foreign",), None
             return ("mu", siga, lsig), None
         if siga.ok and not siga.mu:
             nltf = int(T.N_LTF_OF_NSTS[siga.nss])

@@ -4,6 +4,8 @@ of a cell's results kept for a comparison between two trees.
 
     python3 tools_torch/mimo_check.py ref [--seed N] [--device cuda]
         [--out results_torch/mimo_ref_check.json] [--small]
+    python3 tools_torch/mimo_check.py muref [--seed N] [--device cuda]
+        [--out results_torch/mu_ref_check.json] [--small]
     python3 tools_torch/mimo_check.py dump --workload daemon_mixed_30dB
         --seed N --out FILE.npz [--root TREE] [--device cuda]
     python3 tools_torch/mimo_check.py same A.npz B.npz
@@ -29,6 +31,21 @@ of a cell's results kept for a comparison between two trees.
   whose bits differ (and whether either side decoded the packet), as
   one JSON line, and writes it to ``--out``; exits 1 where bits differ
   on a packet that either side decodes.
+* ``muref``: the inputs of cell ``daemon_mu_sta_30dB`` from the seed, one
+  warm pass of the station's ``RxEngine(nrx=1, mu_pos=, mu_gid=)`` over
+  its blocks, then one pass in which every MU payload call
+  (``_payload_core_mu``) keeps its rows' coded-order LLRs
+  (``ops.ofdm.payload_demod``: K8 on the card) and every SIG-B pass
+  (``_mu_sigb_core``) its bits.  Every MU PPDU of the station's group
+  that a block owns is then decoded by ``benchmark/reference/mu_rx.py``
+  (float64, on the CPU, in worker processes) at the program's own start
+  and CFO, and the two compared: the SIG-B bits, the PSDU bytes, and
+  the LLRs (where the reference's SIG-B gives the program's config)
+  relative to the reference's rms.  Prints the largest and median LLR
+  gaps, how many PPDUs each side decodes to the PSDU sent, and the
+  PPDUs whose bits differ, as one JSON line, and writes it to
+  ``--out``; exits 1 where the reference decodes a PPDU to the PSDU
+  sent and the program does not.
 * ``dump``: one pass of the cell's blocks (after a warm pass) through the
   engine of the tree ``--root`` (default this one), every kept result's
   fields, ``psdu`` and ``sssnr0`` included, into ``--out``; beside them,
@@ -56,6 +73,7 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parents[1]
 CELL_2X2 = "daemon_2x2_mixed_30dB"
+CELL_MU = "daemon_mu_sta_30dB"
 FIELDS = ("trig", "start", "ok", "fmt", "mcs", "nss", "is_ndp", "cfo_hz",
           "snr_db", "rssi", "sssnr0")
 #: ``same``'s limits: dB on ``sssnr0``; a refined estimate's gap over the
@@ -248,16 +266,159 @@ def mode_ref(a) -> int:
     return 1 if out["bits_differ_where_either_decodes"] else 0
 
 
+def mu_ref_pass(seed: int, device: str, small: bool = False):
+    """(inputs, results a view, the MU SIG-B passes' and payload calls'
+    taps a view) of one pass of the MU station's cell.  ``small``: the
+    cell at its CPU test size (``benchmark/tests/cell_small_mu.py``)."""
+    from benchmark import core, generate_mu
+    from benchmark.run import load_cell
+    from gr_ieee80211_tpu_torch.models import rx as RX
+    from gr_ieee80211_tpu_torch.ops import ofdm as OF
+    from tools_torch import timing
+    if small:
+        from benchmark.tests.cell_small_mu import small_cell
+        _, _, cfg, tr = small_cell()
+    else:
+        _, _, cfg, tr = load_cell(CELL_MU)
+    with core.workers() as pool:
+        inp = generate_mu.make(tr, cfg, seed, pool)
+    dev = timing.require_device(device)
+    eng = RX.RxEngine(nrx=1, device=dev, **cfg["engine"])
+    for v in inp["views"]:
+        eng.finish_process(eng.begin_process(v))
+    taps: dict = {"sigb": {}, "coded": {}}
+    cur: list = []
+    orig = (RX._mu_sigb_core, RX._payload_core_mu, OF.payload_demod)
+
+    def sigb(stream, ltf_idx, *x, **k):
+        bits = orig[0](stream, ltf_idx, *x, **k)
+        for li, b in zip(ltf_idx.cpu().numpy(), bits.cpu().numpy()):
+            taps["sigb"].setdefault(int(li), b)
+        return bits
+
+    def payload(c, stream, ltf_idx, *x, **k):
+        cur.append((c, ltf_idx.cpu().numpy()))
+        try:
+            return orig[1](c, stream, ltf_idx, *x, **k)
+        finally:
+            cur.pop()
+
+    def demod(*x, **k):
+        coded = orig[2](*x, **k)
+        if cur:
+            c, lis = cur[-1]
+            for li, row in zip(lis, coded.cpu().numpy()):
+                taps["coded"].setdefault((int(li), c.mcs, c.nsym), row)
+        return coded
+
+    res, kept = [], []
+    (RX._mu_sigb_core, RX._payload_core_mu, OF.payload_demod) = (
+        sigb, payload, demod)
+    try:
+        for v in inp["views"]:
+            taps = {"sigb": {}, "coded": {}}
+            res.append(eng.finish_process(eng.begin_process(v)))
+            kept.append(taps)
+    finally:
+        (RX._mu_sigb_core, RX._payload_core_mu, OF.payload_demod) = orig
+    return inp, res, kept
+
+
+def _mu_ref_row(item) -> dict:
+    """One MU PPDU decoded by the reference (in a worker process): (window
+    (1, n) from the program's start, CFO, nsts_total, own stream, nss,
+    nsym)."""
+    import torch
+    from benchmark.reference import mu_rx as MURX
+    torch.set_num_threads(1)
+    win, cfo, n_total, own, nss, nsym = item
+    (row,) = MURX.decode_at([win], [0], [cfo], n_total, own, nss, nsym)
+    c = row["cfg"]
+    return {"sigb": row["sigb"].numpy(),
+            "cfg": None if c is None else (c.mcs, c.nsym),
+            "llr": row["llr"].numpy() if c is not None else None,
+            "psdu": row.get("psdu"), "service_ok": row.get("service_ok")}
+
+
+def mu_compare(inp: dict, res: list, kept: list) -> dict:
+    from benchmark import core, generate
+    from benchmark.entries import rx_engine_blocks as E
+    from benchmark.reference import mu_rx as MURX
+    from benchmark.reference.params import Fmt
+    rows, items = [], []
+    for k, (sent, rs) in enumerate(zip(inp["sent"], res)):
+        got = E._pair([E.as_fields(r) | {"psdu": r.psdu} for r in rs],
+                      np.array([s for s, _ in sent], np.int64))
+        for j, (_, f) in enumerate(sent):
+            if not f.get("mu") or len(got.get(j, [])) != 1:
+                continue
+            r = got[j][0]
+            n = MURX.n_need(f["nsts_total"], f["nsym"])
+            rows.append((k, j, f, r))
+            items.append((inp["views"][k][:, r["start"]: r["start"] + n],
+                          r["cfo_hz"], f["nsts_total"], f["own_stream"],
+                          f["nss"], f["nsym"]))
+    with core.workers() as pool:
+        refs = pool.map(_mu_ref_row, items, chunksize=4)
+    gaps, differ = [], []
+    prog_ok = ref_ok = ref_only = 0
+    for (k, j, f, r), ref in zip(rows, refs):
+        sent_psdu, _ = generate._psdu(Fmt.VHT, f["mpdus"])
+        p_dec = r["ok"] and r["mpdus"] == f["mpdus"]
+        r_dec = bool(ref["cfg"] is not None and ref["service_ok"]
+                     and ref["psdu"][: f["length"]] == sent_psdu)
+        prog_ok += p_dec
+        ref_ok += r_dec
+        ref_only += r_dec and not p_dec
+        coded = kept[k]["coded"].get((r["start"],) + (ref["cfg"] or ()))
+        if coded is not None:
+            lr = ref["llr"]
+            gaps.append(float(np.abs(coded[: lr.size] - lr).max()
+                              / np.sqrt(np.mean(lr ** 2))))
+        sb = kept[k]["sigb"].get(r["start"])
+        same_sigb = sb is not None and np.array_equal(sb, ref["sigb"])
+        same_psdu = ref["psdu"] is not None and r["psdu"] == ref["psdu"]
+        if not (same_sigb and (same_psdu or not (p_dec or r_dec))):
+            differ.append({"view": k, "start": r["start"], "mcs": f["mcs"],
+                           "sigb_equal": same_sigb, "psdu_equal": same_psdu,
+                           "program_decodes": p_dec,
+                           "reference_decodes": r_dec})
+
+    def q(xs):
+        return {"max": max(xs), "median": float(np.median(xs))} if xs \
+            else None
+    return {"ppdus": len(rows), "llr_rows": len(gaps),
+            "llr_rel_gap": q(gaps), "program_decodes": prog_ok,
+            "reference_decodes": ref_ok, "reference_only": ref_only,
+            "bits_differ": len(differ), "rows_bits_differ": differ[:20]}
+
+
+def mode_muref(a) -> int:
+    sys.path.insert(0, str(ROOT))
+    from tools_torch import timing
+    inp, res, kept = mu_ref_pass(a.seed, a.device, a.small)
+    out = {"mode": "muref", "seed": a.seed,
+           "device": timing.device_info(timing.require_device(a.device)),
+           **mu_compare(inp, res, kept)}
+    line = json.dumps(out)
+    print(line)
+    Path(a.out).parent.mkdir(parents=True, exist_ok=True)
+    Path(a.out).write_text(line + "\n")
+    return 1 if out["reference_only"] else 0
+
+
 def mode_dump(a) -> int:
+    sys.path.insert(0, str(ROOT))
+    from tools_torch.trace_check import generator     # this tree's tools
+    # the program and the benchmark of the tree measured
     sys.path.insert(0, str(Path(a.root).resolve() if a.root else ROOT))
-    from benchmark import core, generate, generate_2x2
+    from benchmark import core
     from benchmark.run import load_cell
     from gr_ieee80211_tpu_torch.models import rx as RX
     from gr_ieee80211_tpu_torch.ops import ofdm as OF
     _, _, cfg, tr = load_cell(a.workload)
-    gen = generate_2x2 if cfg["nrx"] == 2 else generate
     with core.workers() as pool:
-        views = gen.make(tr, cfg, a.seed, pool)["views"]
+        views = generator(cfg).make(tr, cfg, a.seed, pool)["views"]
     eng = RX.RxEngine(nrx=cfg["nrx"], device=a.device, **cfg["engine"])
     for v in views:
         eng.finish_process(eng.begin_process(v))
@@ -350,6 +511,11 @@ def main(argv=None) -> int:
     r.add_argument("--device", default="cuda")
     r.add_argument("--out", default="results_torch/mimo_ref_check.json")
     r.add_argument("--small", action="store_true")
+    m = sub.add_parser("muref")
+    m.add_argument("--seed", type=int, default=3000001900)
+    m.add_argument("--device", default="cuda")
+    m.add_argument("--out", default="results_torch/mu_ref_check.json")
+    m.add_argument("--small", action="store_true")
     d = sub.add_parser("dump")
     d.add_argument("--workload", default="daemon_mixed_30dB")
     d.add_argument("--seed", type=int, required=True)
@@ -360,7 +526,8 @@ def main(argv=None) -> int:
     s.add_argument("a")
     s.add_argument("b")
     a = ap.parse_args(argv)
-    return {"ref": mode_ref, "dump": mode_dump, "same": mode_same}[a.mode](a)
+    return {"ref": mode_ref, "muref": mode_muref, "dump": mode_dump,
+            "same": mode_same}[a.mode](a)
 
 
 if __name__ == "__main__":

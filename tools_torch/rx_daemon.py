@@ -19,7 +19,9 @@ Every ``--stats-every`` seconds (and once at the end of ``--once``) it
 prints the blocks and packets decoded, the per-(format, MCS) tallies,
 the engine's counters since the start (``utils/trace``: host-device
 synchronizations, bucket decodes and their rows, speculation hits and
-misses) and the ring's backlog, its high-water mark since the last line.
+misses; with ``--mu-pos``, the MU PPDUs of its group decoded, the MU
+payload calls and the PPDUs rejected by their SIG-B / SERVICE checks) and
+the ring's backlog, its high-water mark since the last line.
 """
 import argparse
 import os
@@ -31,14 +33,21 @@ import numpy as np
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 
-def engine_line(c: dict, backlog: int) -> str:
+def engine_line(c: dict, backlog: int, mu: bool = False) -> str:
     """The stats line's engine part from a ``trace.snapshot()`` and the
-    streamer's backlog."""
+    streamer's backlog; with ``mu`` (an MU station) also its MU PPDUs
+    decoded, its MU payload calls and the PPDUs whose SIG-B or SERVICE
+    check failed."""
     def g(k):
         return int(c.get(k, 0))
-    return (f"syncs {g('sync.total')}  buckets {g('rx.bucket.calls')} "
+    line = (f"syncs {g('sync.total')}  buckets {g('rx.bucket.calls')} "
             f"rows {g('rx.bucket.rows')}  spec hits {g('rx.spec.hits')} "
             f"misses {g('rx.spec.misses')}  backlog {backlog}")
+    if mu:
+        line += (f"  mu rows {g('rx.mu.rows')}  mu calls {g('rx.mu.calls')}"
+                 f"  mu rejected {g('rx.mu.sigb_rejected')}/"
+                 f"{g('rx.mu.service_rejected')}")
+    return line
 
 
 def main():
@@ -82,6 +91,7 @@ def main():
     eng = RxEngine(nrx=nrx, mu_pos=args.mu_pos, mu_gid=args.mu_gid,
                    ingest="f32" if args.f32_ingest else "bf16",
                    device=args.device)
+    mu = args.mu_pos is not None
     streamer = RxStreamer(rings, eng, block_len=args.block, halo=args.halo,
                           reporter=PhyRxReporter(port=args.report_port))
     streamer.start()
@@ -108,7 +118,7 @@ def main():
             print(f"done: {streamer.n_blocks} blocks, "
                   f"{streamer.n_ok}/{streamer.n_packets} packets ok",
                   file=sys.stderr)
-            print(engine_line(trace.snapshot(), streamer.fill_max),
+            print(engine_line(trace.snapshot(), streamer.fill_max, mu),
                   file=sys.stderr)
             return 0
         while True:
@@ -128,7 +138,8 @@ def main():
             backlog, streamer.fill_max = streamer.fill_max, 0
             print(f"blocks {streamer.n_blocks}  pkts ok "
                   f"{streamer.n_ok}/{streamer.n_packets}  ingest {s}  "
-                  f"[{tallies}]  {engine_line(trace.snapshot(), backlog)}",
+                  f"[{tallies}]  "
+                  f"{engine_line(trace.snapshot(), backlog, mu)}",
                   file=sys.stderr)
     except KeyboardInterrupt:
         return 0

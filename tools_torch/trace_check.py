@@ -8,8 +8,9 @@
     python3 tools_torch/trace_check.py wait [--workload ...] [--seed N]
         [--runs 5] [--out results_torch/trace_wait.json]
 
-* ``sync``: the cell's inputs from the seed (``benchmark/generate.py``;
-  ``generate_2x2.py`` for a two-antenna cell),
+* ``sync``: the cell's inputs from the seed (the generator of the cell's
+  entry: ``benchmark/generate.py``, ``generate_2x2.py`` or
+  ``generate_mu.py``),
   one warm pass of ``RxEngine`` over its blocks (``begin_process`` then
   ``finish_process``, block by block, as the benchmark's entry), then one pass under
   ``torch.cuda.set_sync_debug_mode("warn")``: every synchronizing call
@@ -19,9 +20,13 @@
   and ``sync.total``'s differ (the tool's own call that turns the mode
   off reports one more, outside the port).  Beside them, the change of
   the ``decode.*`` counters (rows, failed rows, calls by tier), of the
-  kernel wrappers' launches and of the bucket calls and rows over the
-  pass, and whether K7's and K8's launches (``kernel.payload_chanest`` /
-  ``kernel.payload_demod.launches``) each equal ``rx.bucket.calls``.
+  kernel wrappers' launches, of the bucket calls and rows, of
+  speculation's ``rx.spec.*`` and of the MU station's ``rx.mu.*``
+  counters over the pass, and whether K7's
+  launches (``kernel.payload_chanest.launches``) equal
+  ``rx.bucket.calls`` and K8's (``kernel.payload_demod.launches``)
+  ``rx.bucket.calls`` + ``rx.mu.calls`` (the MU payload decode
+  demodulates through K8 and estimates its channel without K7).
 * ``overhead``: untraced runs of the cell (``benchmark/run.py --trace
   0``), in turns with the program's spans off (as the benchmark runs)
   and forced on (``trace.enable()`` before the run), one seed, ``--runs``
@@ -77,16 +82,24 @@ def _site(stack) -> str:
         f"{Path(f.filename).name}:{f.lineno} {f.name}" for f in own[-1:-5:-1])
 
 
+def generator(cfg: dict):
+    """The benchmark's generator of a configuration's entry."""
+    import importlib
+    name = {"rx_engine_blocks": "generate",
+            "rx_engine_blocks_2x2": "generate_2x2",
+            "rx_engine_blocks_mu": "generate_mu"}[cfg["entry"]]
+    return importlib.import_module(f"benchmark.{name}")
+
+
 def mode_sync(a) -> dict:
     import torch
-    from benchmark import core, generate, generate_2x2
+    from benchmark import core
     from benchmark.run import load_cell
     from gr_ieee80211_tpu_torch.models.rx import RxEngine
     from gr_ieee80211_tpu_torch.utils import trace
     _, _, cfg, tr = load_cell(a.workload)
     with core.workers() as pool:
-        gen = generate_2x2 if cfg["nrx"] == 2 else generate
-        views = gen.make(tr, cfg, a.seed, pool)["views"]
+        views = generator(cfg).make(tr, cfg, a.seed, pool)["views"]
     dev = timing.require_device(a.device)
     eng = RxEngine(nrx=cfg["nrx"], device=dev, **cfg["engine"])
 
@@ -123,6 +136,10 @@ def mode_sync(a) -> dict:
         by_line[s] = by_line.get(s, 0) + 1
     in_port = sum(n for k, n in by_line.items()
                   if not k.startswith("outside the port"))
+    bucket = moved.get("rx.bucket.calls", 0)
+    mu = moved.get("rx.mu.calls", 0)
+    k7 = moved.get("kernel.payload_chanest.launches", 0)
+    k8 = moved.get("kernel.payload_demod.launches", 0)
     return {"mode": "sync", "workload": a.workload, "seed": a.seed,
             "blocks": len(views), "pytorch_syncs": len(seen),
             "pytorch_syncs_in_port": in_port,
@@ -132,15 +149,13 @@ def mode_sync(a) -> dict:
             "decode_and_launches": {
                 k: v for k, v in sorted(moved.items())
                 if k.startswith(("decode.", "kernel.", "rx.bucket.",
-                                 "rx.payload.")) and ".at." not in k},
-            "bucket_calls": moved.get("rx.bucket.calls", 0),
-            "k7_k8_launches": [
-                moved.get("kernel.payload_chanest.launches", 0),
-                moved.get("kernel.payload_demod.launches", 0)],
-            "one_k7_k8_launch_a_bucket": (
-                moved.get("kernel.payload_chanest.launches", 0)
-                == moved.get("kernel.payload_demod.launches", 0)
-                == moved.get("rx.bucket.calls", 0)),
+                                 "rx.mu.", "rx.payload.", "rx.spec."))
+                and ".at." not in k},
+            "bucket_calls": bucket,
+            "mu_calls": mu,
+            "k7_k8_launches": [k7, k8],
+            "k7_a_bucket_k8_a_bucket_or_mu_call": (k7 == bucket
+                                                   and k8 == bucket + mu),
             **timing.kernel_launches(moved),
             "pytorch_by_line": dict(sorted(by_line.items(),
                                            key=lambda kv: -kv[1]))}
